@@ -2,10 +2,10 @@
 virtual 2x4 CPU mesh and report XLA's per-device memory analysis.
 
 The BASELINE.md large-run target (bit-stable 16384^2 braid-class
-terrain on N>=2 hosts) cannot execute in this single-chip environment;
-this artifact proves the sharded program BUILDS at that scale and
-bounds its per-device footprint (~3.2 GiB on 8 devices, 5x headroom on
-16 GiB v5e) - run it after any state-layout change.
+terrain on N>=2 hosts) needs more than one device; this script proves
+the sharded program BUILDS at that scale and prints XLA's per-device
+memory analysis of it - run it after any state-layout change. It runs
+on CPU devices only (a CPU rehearsal; nothing here touches a GPU).
 
 Usage: PYTHONPATH=. python benchmarks/compile_16k.py
 """

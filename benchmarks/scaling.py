@@ -1,23 +1,23 @@
 """Weak-scaling harness: coupled erosion step, 1 chip → N devices/hosts.
 
 The BASELINE.md target is ≥80% weak-scaling efficiency with 2-D block
-decomposition and halo exchange over ICI. This harness fixes the PER-DEVICE
+decomposition and halo exchange. This harness fixes the PER-DEVICE
 block size and grows the global grid with the mesh, reporting cell-steps/s
 and efficiency vs the single-device run.
 
-Real pod:   launched per host after jax.distributed.initialize()
+Multi-host: launched per host after jax.distributed.initialize()
 Structure:  --virtual N runs the same code on N CPU devices (numbers are
             not meaningful there; use it to validate the harness itself).
 Cross-proc: --procs P spawns P real OS processes that
             jax.distributed.initialize against a localhost coordinator
-            (the pod launch recipe, tests/multiproc_worker.py) and times
+            (the multi-host launch recipe, tests/multiproc_worker.py) and times
             the sharded step where the K-blocked ppermute exchange
             CROSSES PROCESS BOUNDARIES, against the identical global
             config in one process.  CAVEAT: all processes share one
             socket, so per-device throughput is not a hardware number —
             the signal is the measured relative cost of crossing the
             process boundary, the one configuration the virtual
-            single-process harness cannot see (RESULTS.md weak-scaling).
+            single-process harness cannot see.
 
     python benchmarks/scaling.py [--block 1024] [--steps 4] [--virtual 8]
     python benchmarks/scaling.py --procs 2 [--devices-per-proc 4]
@@ -173,14 +173,12 @@ def main():
     if args.virtual:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.virtual)
-    import jax.numpy as jnp
 
     import soillib_tpu as soil
     from soillib_tpu import parallel as par
 
     def sync(state):
         jax.block_until_ready(state)
-        float(jnp.asarray(state.discharge).ravel()[0])
 
     def run(devices):
         mesh = par.make_mesh(devices=devices)

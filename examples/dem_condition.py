@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -25,6 +26,7 @@ def main():
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--out", default="/tmp/dem_condition.png")
     args = ap.parse_args()
+    enable_compile_cache()
 
     if args.dem:
         img = soil.geotiff(args.dem)

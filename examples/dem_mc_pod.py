@@ -2,7 +2,7 @@
 
 No reference analog — the reference's MC solvers are single-GPU
 (path.cu / erosion.cu); this example runs the faithful particle
-estimators block-decomposed with cross-block ICI particle migration
+estimators block-decomposed with cross-block particle migration
 (parallel/particles.py): a DEM's steady-state water distribution is
 estimated from millions of trajectories whose particles hop between
 device blocks as they cross seams, and the fluvial MC transport is
@@ -24,7 +24,8 @@ def main():
     ap.add_argument("--count", type=int, default=0,
                     help="particles (default 16x cells)")
     ap.add_argument("--virtual", type=int, default=0,
-                    help="simulate N CPU devices (no TPU needed)")
+                    help="CPU rehearsal: run on N virtual CPU devices "
+                         "instead of the GPUs")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
@@ -36,6 +37,9 @@ def main():
     import numpy as np
 
     import soillib_tpu as soil
+    from soillib_tpu.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from soillib_tpu import parallel as par
 
     mesh = par.make_mesh()

@@ -2,7 +2,7 @@
 
 Reference workload: example/dem_multiflow.py — 1024² DEM, K=512 stochastic
 receiver graphs (`random_weighted`, temperature T), each accumulated and
-averaged on the host. TPU-native twist: the ensemble members are
+averaged on the host. Here the ensemble members are
 *vmapped* over threefry keys and mean-reduced on-device — one compiled
 program instead of 512 launches + 512 device→host copies.
 
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def load_or_synthesize(path, res=1024):
@@ -37,6 +38,7 @@ def main():
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--out", default="/tmp/dem_multiflow.png")
     args = ap.parse_args()
+    enable_compile_cache()
 
     height, scale = load_or_synthesize(args.dem)
     rain = jnp.ones_like(height)

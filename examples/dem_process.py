@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -26,6 +27,7 @@ def main():
     ap.add_argument("--particles", action="store_true")
     ap.add_argument("--out", default="/tmp/dem_process.png")
     args = ap.parse_args()
+    enable_compile_cache()
 
     if args.dem:
         img = soil.geotiff(args.dem)

@@ -1,11 +1,11 @@
-"""Coupled hydraulic + debris-flow erosion on one TPU chip.
+"""Coupled hydraulic + debris-flow erosion on one device.
 
 The flagship workload (reference: example/erosion_gpu.py — 256² grid,
 20 km world, 512 coupled steps, timed per step). Parameters mirror the
 reference script's configuration (erosion_gpu.py:75-100); the whole step
 is one jitted program, so the Python loop only paces the device.
 
-    python examples/erosion_tpu.py [--res 256] [--steps 512] [--out DIR]
+    python examples/erosion_gpu.py [--res 256] [--steps 512] [--out DIR]
 """
 
 import argparse
@@ -16,6 +16,7 @@ import jax
 import numpy as np
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def make_param() -> soil.ErosionParams:
@@ -51,12 +52,12 @@ def main():
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--steps", type=int, default=512)
     ap.add_argument("--report", type=int, default=32)
-    ap.add_argument("--out", default="/tmp/erosion_tpu")
+    ap.add_argument("--out", default="out/erosion")
     ap.add_argument("--quality", action="store_true",
                     help="mixture quality mode (CohortClosure(nodes=4, "
-                         "colors=8): ~13x step cost — RESULTS.md "
-                         "quality-mode study; debris keeps the default "
-                         "closure, see ErosionParams.closureDebris)")
+                         "colors=8), RESULTS.md quality-mode study; debris "
+                         "keeps the default closure, see "
+                         "ErosionParams.closureDebris)")
     ap.add_argument("--faithful", action="store_true",
                     help="reference-faithful transport depth: maxage-2 "
                          "rounds as an upper bound with the convergence-"
@@ -64,6 +65,7 @@ def main():
                          "the fixed full-depth solve to f32 roundoff "
                          "while skipping dead rounds (erosion.cu:101)")
     args = ap.parse_args()
+    enable_compile_cache()
 
     res = (args.res, args.res)
     wscale = (20.0, 20.0, 4.0)                      # world scale [km]

@@ -6,7 +6,7 @@ pixel scale recomputed from the fixed world extent each level
 (ksteps = [(128², 2048), (256², 4), (1000², 4)], :142-148). Final state
 checkpointed as GeoTIFFs in a zip (:166-170).
 
-    python examples/erosion_tpu_multiscale.py [--quick]
+    python examples/erosion_gpu_multiscale.py [--quick]
 """
 
 import argparse
@@ -15,7 +15,8 @@ import os
 import numpy as np
 
 import soillib_tpu as soil
-from examples.erosion_tpu import make_param
+from soillib_tpu.core.compile_cache import enable_compile_cache
+from examples.erosion_gpu import make_param
 
 
 def main():
@@ -26,6 +27,7 @@ def main():
                     help="cascade override as res:steps,res:steps,...")
     ap.add_argument("--out", default="/tmp/erosion_multiscale")
     args = ap.parse_args()
+    enable_compile_cache()
 
     if args.levels:
         levels = [((int(r), int(r)), int(s))

@@ -1,14 +1,17 @@
-"""Pod-scale erosion: 2-D block decomposition over a device mesh.
+"""Multi-device erosion: 2-D block decomposition over a device mesh.
 
 No reference analog — the reference is single-GPU (SURVEY.md §2.10); this
-is the TPU-native scale-out path (BASELINE.md north star): every field is
-block-sharded over a ("X", "Y") mesh, radius-1 stencils and each upwind
-transport round exchange halos over ICI inside shard_map.
+is the scale-out path (BASELINE.md north star): every field is
+block-sharded over a ("X", "Y") mesh of all visible GPUs, radius-1
+stencils and each transport pass exchange halos (NCCL over NVLink)
+inside shard_map.
 
-Single host:     python examples/erosion_pod.py --res 1024 --steps 64
-Virtual devices: python examples/erosion_pod.py --virtual 8 --res 256
-Multi-host pod:  call jax.distributed.initialize() first (same script,
-                 launched per host).
+One host, all GPUs: python examples/erosion_pod.py --res 1024 --steps 64
+CPU rehearsal:      python examples/erosion_pod.py --virtual 8 --res 256
+                    (N virtual CPU devices instead of the GPUs; numbers
+                    are not device numbers)
+Multi-host:         call jax.distributed.initialize() first (same script,
+                    launched per host).
 """
 
 import argparse
@@ -20,7 +23,8 @@ def main():
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--virtual", type=int, default=0,
-                    help="simulate N CPU devices (no TPU needed)")
+                    help="CPU rehearsal: run on N virtual CPU devices "
+                         "instead of the GPUs")
     args = ap.parse_args()
 
     import jax
@@ -31,8 +35,11 @@ def main():
     import numpy as np
 
     import soillib_tpu as soil
+    from soillib_tpu.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from soillib_tpu import parallel as par
-    from examples.erosion_tpu import make_param
+    from examples.erosion_gpu import make_param
 
     mesh = par.make_mesh()
     px, py = mesh.devices.shape
@@ -57,7 +64,6 @@ def main():
     t0 = time.perf_counter()
     state = step(state, key)
     jax.block_until_ready(state)
-    float(jnp.asarray(state.discharge).ravel()[0])  # force full sync
     dt = time.perf_counter() - t0
 
     cells = res[0] * res[1]

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -22,6 +23,7 @@ def main():
     ap.add_argument("--pscale", type=float, default=0.1)
     ap.add_argument("--out", default="/tmp/merged.tiff")
     args = ap.parse_args()
+    enable_compile_cache()
 
     # Pass 1: union world extent.
     wmin = np.array([np.inf, np.inf])

@@ -6,6 +6,7 @@
 import argparse
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -13,6 +14,7 @@ def main():
     ap.add_argument("input")
     ap.add_argument("output", nargs="?", default="/tmp/out.ply")
     args = ap.parse_args()
+    enable_compile_cache()
 
     for file, path in soil.util.iter_tiff(args.input):
         image = soil.geotiff(path)

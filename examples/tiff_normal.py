@@ -7,6 +7,7 @@ import argparse
 import os
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -14,6 +15,7 @@ def main():
     ap.add_argument("input")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    enable_compile_cache()
 
     for file, path in soil.util.iter_tiff(args.input):
         image = soil.geotiff(path)

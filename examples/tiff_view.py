@@ -9,6 +9,7 @@ import os
 import numpy as np
 
 import soillib_tpu as soil
+from soillib_tpu.core.compile_cache import enable_compile_cache
 
 
 def main():
@@ -16,6 +17,7 @@ def main():
     ap.add_argument("input")
     ap.add_argument("--out", default=None, help="save PNGs here (headless)")
     args = ap.parse_args()
+    enable_compile_cache()
 
     for file, path in soil.util.iter_tiff(args.input):
         image = soil.geotiff(path)

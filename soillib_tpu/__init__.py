@@ -1,12 +1,12 @@
-"""soillib_tpu — a TPU-native geomorphology simulation framework.
+"""soillib_tpu — a geomorphology simulation framework in JAX.
 
-A from-scratch JAX / XLA / Pallas re-design with the capabilities of
+A from-scratch JAX / XLA re-design with the capabilities of
 erosiv/soillib (reference: /root/reference, v1.1.2): kernelized erosion
 models (fluvial + debris-flow transport, mass transfer, thermal creep),
 DEM flow-graph operations (flow direction, flow accumulation, slope),
 differential/filter operators, procedural noise, GeoTIFF / PLY I/O and
 numpy interop — all expressed as functional array programs over a 2-D
-grid, sharded across TPU device meshes with `shard_map`.
+grid, sharded across device meshes with `shard_map`.
 
 Conventions (matching the reference's silt layer, see SURVEY.md §2.9):
   * fields are `jnp` arrays of shape (W, H) or (W, H, C); axis 0 is x.

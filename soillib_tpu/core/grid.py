@@ -52,7 +52,7 @@ def check_channel_last(name: str, arr, channels=(2,)):
 
     The ops layer (gradient / solve_uniform flow fields) is channel-last
     for grad.cu view parity, while models/parallel state is channel-FIRST
-    (C, W, H) for TPU lane efficiency. This seam is easy to trip — a
+    (C, W, H) so the contiguous dimension is spatial. This seam is easy to trip — a
     mis-laid-out array silently reads garbage W/H — so every channel-last
     entry point validates here and names the expected layout.
     """

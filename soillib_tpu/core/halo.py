@@ -11,7 +11,7 @@ On a single device `NO_HALO` makes both calls the identity, so the ops run
 exactly as plain jnp stencils (their internal `_shift` fills supply the
 boundary conditions). Inside `shard_map` on a 2-D device mesh,
 `soillib_tpu.parallel.ShardHalo` implements `pad` with `jax.lax.ppermute`
-neighbor exchanges over ICI, filling the ring with the neighboring block's
+neighbor exchanges (NCCL between cards), filling the ring with the neighboring block's
 edge data — and with the *global* boundary condition (`fill`) only at true
 domain edges. Because the fills match, a sharded run is numerically
 equivalent to the single-device run: bitwise for the pad/crop stencil ops
@@ -20,8 +20,8 @@ composed steps, whose surrounding arithmetic XLA may schedule differently
 per backend (asserted at rtol=1e-4 in tests/test_parallel.py).
 
 The reference needs none of this: CUDA kernels read any cell of global
-memory directly (SURVEY.md §2.10). On TPU the halo exchange is the explicit
-ICI analog of that implicit global visibility.
+memory directly (SURVEY.md §2.10). Across devices the halo exchange is the
+explicit analog of that implicit global visibility.
 
 Fill modes:
   * a float (0.0, nan, ...): constant ring at the domain boundary
@@ -51,17 +51,16 @@ class Halo:
     def run_transport(self, E, att, vx, vy, iters: int):
         """`iters` rounds of the upwind transport fixed point
         G <- PUSH(att * (E + G)) with channel-FIRST E, att (C, W, H) and
-        (W, H) direction components. Single-device: the temporally-blocked
-        Pallas sweep on TPU (one HBM pass per 16 rounds, ops/sweep.py).
-        Sharded: K-blocked ppermute halo exchange."""
+        (W, H) direction components. Single-device: one fused push per
+        round (ops/sweep.py). Sharded: K-blocked ppermute halo exchange."""
         raise NotImplementedError
 
     def run_cohort(self, st0, aux, rules, iters: int, Llen, closure=None,
                    tol: float = 0.0):
         """`iters` rounds of the age-structured cohort sweep (nonlinear
         per-particle state transport, ops/cohort.py) -> (C, W, H)
-        deposits. Single-device: the temporally-blocked Pallas cohort
-        kernel on TPU. Sharded: K-blocked ppermute exchange of the
+        deposits. Single-device: the per-round loop of ops/cohort.py.
+        Sharded: K-blocked ppermute exchange of the
         cohort state. `closure` is an ops.cohort.CohortClosure (None ->
         the SOIL_COHORT_* env defaults). `tol` > 0 enables the
         convergence-adaptive depth exit (ops/cohort.py carried_live):

@@ -4,7 +4,7 @@ The reference vendors libmorton (source/soillib/external/, 1322 LoC) —
 unreferenced by current soillib code but part of its surface (SURVEY.md
 §2.8). Provided here as branch-free jnp bit-interleaving; useful for
 locality-preserving reorderings of sparse cell sets (e.g. particle
-binning) on TPU.
+binning).
 """
 
 from __future__ import annotations

@@ -22,11 +22,11 @@ generators lack:
   a finished coroutine cannot restart; iterating a consumed `yield_t`
   here raises instead of silently yielding nothing.
 
-`prefetch` is the TPU-native reason to have this layer at all: a
+`prefetch` is the accelerator-side reason to have this layer at all: a
 generator of host arrays (e.g. `soil.util.iter_tiff` tiles) becomes a
 generator of *device* arrays with the next `depth` transfers already
 in flight — JAX dispatch is asynchronous, so `jax.device_put` on the
-lookahead items overlaps the host→HBM copy of tile i+1..i+depth with
+lookahead items overlaps the host→device copy of tile i+1..i+depth with
 the compute consuming tile i. This is the streaming-IO overlap the
 reference gets for free from CUDA's async H2D in its import pipeline.
 """
@@ -160,7 +160,7 @@ def prefetch(iterable: Iterable, depth: int = 2,
     host→device transfers already dispatched.
 
     JAX dispatch is asynchronous, so calling `jax.device_put` on the
-    lookahead window overlaps PCIe/tunnel transfer of upcoming items
+    lookahead window overlaps the PCIe transfer of upcoming items
     with the compute consuming the current one — double-buffered
     streaming for tile pipelines (`soil.util.iter_tiff` →
     `soil.geotiff`). Leaves of nested structures (tuples of arrays,

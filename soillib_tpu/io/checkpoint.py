@@ -4,7 +4,7 @@
   field written as a GeoTIFF (with pixel scale) into a zip
   (python/soillib/util.py:187-195).
 * `save_checkpoint` / `load_checkpoint`: orbax-backed pytree step
-  checkpoints for pod-scale runs (extension over the reference; SURVEY.md §5).
+  checkpoints for multi-device runs (extension over the reference; SURVEY.md §5).
 """
 
 from __future__ import annotations

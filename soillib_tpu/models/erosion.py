@@ -1,4 +1,4 @@
-"""Unified erosion model — TPU-native kernels.
+"""Unified erosion model — XLA-compiled field solvers.
 
 Re-design of the reference's coupled hydraulic + debris-flow erosion model
 (model/path/erosion.cu, 921 LoC CUDA). The terrain is a two-layer state
@@ -7,8 +7,8 @@ dimensionalized by scale.z (erosion.hpp:60; erosion.cu:441-451).
 
 Layout: every multichannel field is channel-FIRST — layers (2, W, H),
 momentum (2, W, H), albedo (3, W, H), gradients (2, W, H) — so the minor
-(lane) dimension is always spatial; small channel-last minors tempt the
-TPU compiler into 42x lane-padded layouts (see PARITY.md).
+(contiguous) dimension is always spatial and per-channel slices are
+contiguous planes.
 
 Per step (see SURVEY.md §3.1):
   1. `transport_fluvial`  — steady-state water/sediment-mass/momentum fields
@@ -21,7 +21,7 @@ Per step (see SURVEY.md §3.1):
 The transport phase keeps the reference's *model* (per-cell sources,
 exponential attenuation, flux deposition along the flow) but replaces the
 Monte-Carlo particle ensemble with the deterministic upwind fixed-point
-iteration of ops.transport (method="field", the TPU-idiomatic default); a
+iteration of ops.transport (method="field", the default); a
 faithful particle method (threefry, scatter-add) is available with
 method="particles" for distributional parity with the reference.
 
@@ -175,10 +175,8 @@ def _cohort_state(w0, speed0, carried0):
     cross-moment (newborns are velocity-deterministic, so E[v^2] = v^2
     and E[vx*vy] = vx*vy), carried totals.
 
-    Returned as a lazy channel TUPLE (ops/cohort.py `as_stack` form): the
-    Pallas path then builds its padded staging buffer channel-by-channel,
-    so the unpadded (5+C, W, H) stack — 3 GB at 8192² — never
-    materializes next to its padded copy."""
+    Returned as a channel tuple; the solvers stack it with ops/cohort.py
+    `as_stack`."""
     return (w0, w0 * speed0[0], w0 * speed0[1],
             w0 * speed0[0] * speed0[0],
             w0 * speed0[1] * speed0[1],
@@ -225,8 +223,8 @@ def _color_masks(M, rule, speed, shape, halo=NO_HALO):
         theta = jnp.arctan2(-speed[1], -speed[0])
         sect = (jnp.floor(theta * (4.0 / jnp.pi) + 0.5)
                 .astype(jnp.int32) % 8)
-        # Two (8,) tables, not one (8, 2): CLAUDE.md's lane-padding
-        # invariant bans C=2 minor dims inside jitted TPU code.
+        # Two (8,) tables, not one (8, 2): no C=2 minor dims (the
+        # channel-first layout invariant, CLAUDE.md).
         d8x = jnp.array([1, 1, 0, -1, -1, -1, 0, 1], jnp.int32)
         d8y = jnp.array([0, 1, 1, 1, 0, -1, -1, -1], jnp.int32)
         dx = d8x[sect]
@@ -343,19 +341,14 @@ def _run_cohort_colored(halo, w0, speed, carried0, aux, rules, iters,
     CohortClosure.colors). Every state channel carries a w0 factor, so
     masking the births is a per-channel multiply.
 
-    The color sub-states are BATCHED as extra channel groups through ONE
-    solve whenever a kernel window geometry fits the wide state (VERDICT
-    r4 #4: M sequential solves paid kernel staging, aux-window DMA and
-    deposit traffic M times over); the sequential per-color loop remains
-    as the fallback for states too wide for any VMEM geometry."""
+    The colours are solved one after another, in a `lax.scan` over the
+    masks (one compiled solve, one colour's state live at a time): the
+    round is bound by memory traffic, which batching does not reduce,
+    while a batched state holds all M colour groups — and the round's
+    temporaries for each — at once (544 channels at nodes=4, colors=8)."""
     import dataclasses as _dc
 
-    from soillib_tpu.ops.cohort import (
-        ENV_CLOSURE,
-        NSTATE,
-        choose_geometry,
-        use_pallas,
-    )
+    from soillib_tpu.ops.cohort import ENV_CLOSURE
 
     cl = closure or ENV_CLOSURE
     M = int(getattr(cl, "colors", 1) or 1)
@@ -363,49 +356,17 @@ def _run_cohort_colored(halo, w0, speed, carried0, aux, rules, iters,
         st0 = _build_cohort_state(w0, speed, carried0, cl)
         return halo.run_cohort(st0, aux, rules, iters, Llen, closure,
                                tol=tol)
-    masks = _color_masks(M, cl.color_rule, speed, w0.shape, halo)
+    cl1 = _dc.replace(cl, colors=1)
+    masks = jnp.stack(_color_masks(M, cl.color_rule, speed, w0.shape, halo))
 
-    # Color chunk size: the kernel is VPU-issue-bound, so the dominant
-    # cost model is (total rounds x channels) / window-efficiency — the
-    # batched channel count inflates the VMEM live-set, shrinking the
-    # window and its tile/halo ratio, so the best chunk is the one whose
-    # geometry wastes least (measured: n2c4 batched S=136 runs 6.0x a
-    # default step where the round-4 loop ran ~8 ensembles at ~8x, but
-    # n4c8 chunked at S=136 LOST to the S=68 loop — efficiency, not
-    # batch width, decides).  Ties prefer the larger chunk (fewer
-    # staging builds).
-    cb = M
-    if use_pallas():
-        from soillib_tpu.ops.cohort import geometry_efficiency
+    def one_color(G, mk):
+        st0 = _build_cohort_state(w0 * mk, speed,
+                                  [c * mk for c in carried0], cl)
+        return G + halo.run_cohort(st0, aux, rules, iters, Llen, cl1,
+                                   tol=tol), None
 
-        nnodes = int(getattr(cl, "nodes", 1) or 1)
-        per = nnodes * (NSTATE + len(carried0))
-        best = None
-        c = M
-        while c >= 1:
-            if c == 1 or M % c == 0:
-                try:
-                    g = choose_geometry(c * per, len(aux), len(carried0),
-                                        _dc.replace(cl, colors=c),
-                                        grid=w0.shape)
-                    eff = geometry_efficiency(g, w0.shape)
-                    if best is None or eff > best[0] * 1.02:
-                        best = (eff, c)
-                except ValueError:
-                    pass
-            c = c // 2
-        cb = best[1] if best else 1
-    G = None
-    for j0 in range(0, M, cb):
-        chunk = masks[j0:j0 + cb]
-        chans = ()
-        for mk in chunk:
-            chans += _build_cohort_state(w0 * mk, speed,
-                                         [c * mk for c in carried0], cl)
-        g = halo.run_cohort(chans, aux, rules, iters, Llen,
-                            _dc.replace(cl, colors=len(chunk)), tol=tol)
-        G = g if G is None else G + g
-    return G
+    G0 = jnp.zeros((len(carried0),) + tuple(w0.shape), jnp.float32)
+    return jax.lax.scan(one_color, G0, masks)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +485,7 @@ def transport_fluvial(
                 "step (the field solve is the in-step sharded "
                 "formulation); for distributional MC at mesh scale use "
                 "parallel.fluvial_particles_sharded, which migrates "
-                "particles across blocks over ICI"
+                "particles across blocks by ppermute"
             )
         if key is None:
             key = jax.random.PRNGKey(0)
@@ -539,8 +500,8 @@ def transport_fluvial(
         raise ValueError(f"unknown transport method: {method!r}")
 
     # Unpack/normalize channel-FIRST; the (W, H, C) outputs are formed only
-    # at the return boundary — large channel-last intermediates otherwise
-    # tempt XLA into lane-padded (N*N, C) fusion layouts that OOM at 8192².
+    # at the return boundary, so no large channel-last intermediate (a
+    # strided (N*N, C) layout) exists inside the step.
     G_w, G_m = Gcf[0], Gcf[1]
     G_vx, G_vy = Gcf[2], Gcf[3]
     G_a = Gcf[4:7] if Gcf.shape[0] > 4 else None
@@ -598,8 +559,7 @@ def make_fluvial_rules(p, Llen, albedo_on=None):
         # momentum decay 0.125*fD/waterHeight can be O(1)+, so it takes
         # the exact position-averaged factor. Its per-cell rate depends
         # only on the static discharge field, so the caller precomputes
-        # it once per solve (aux[0]) instead of per round (the kernel is
-        # VPU-issue-bound: every op removed is ~proportional time).
+        # it once per solve (aux[0]) instead of per round.
         fac_w = jnp.exp(-jnp.minimum(dL * inv * evap, 88.0))
         fac_m = jnp.exp(-jnp.minimum(dL * inv * kd, 88.0))
         fac_v = expected_exp_step(ux, uy, rate_v)
@@ -655,9 +615,9 @@ def _fluvial_field(t, discharge, p, iters, halo=NO_HALO):
     """Deterministic upwind fixed point of the fluvial transport operator.
 
     Returns the flux tensor channel-FIRST, (7, W, H) = (water, mass, vel_x,
-    vel_y, albedo_rgb), solved by `halo.run_transport` — the temporally-
-    blocked Pallas sweep on a single TPU (ops/sweep.py), the per-round
-    ppermute exchange under shard_map."""
+    vel_y, albedo_rgb), solved by `halo.run_transport` — one fused push
+    per round on a single device (ops/sweep.py), the K-blocked ppermute
+    exchange under shard_map."""
     speed = t["speed"]
     v_norm = _len2(speed[0], speed[1])
     alive = v_norm >= _EPS

@@ -6,7 +6,7 @@ resolutions, recomputing the physical cell size from the fixed world
 extent at each level (erosion_gpu_multiscale.py:102-148: ksteps =
 [(128², 2048), (256², 4), (1000², 4)], pscale = wscale/res at :107-109).
 
-TPU-native form: each level is its own jitted `erode` program (static
+JAX form: each level is its own jitted `erode` program (static
 shapes per level, XLA-compiled once per resolution); with a device mesh,
 each level runs 2-D block-decomposed and the upsample is a resharding
 resize. The "script is the config" — levels are plain (resolution, steps)

@@ -88,7 +88,7 @@ class ErosionParams:
     # matches the fixed full-depth solve to f32 roundoff while costing
     # only the rounds that still move mass — this is what makes the
     # reference-faithful depth (maxage-2 rounds, erosion.cu:101)
-    # affordable on TPU. Forward-only (lax.while_loop); keep 0.0 for
+    # affordable. Forward-only (lax.while_loop); keep 0.0 for
     # differentiable solves.
     transportTol: float = 0.0
     # Albedo instrumentation toggle: albedo never feeds back into the

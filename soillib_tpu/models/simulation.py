@@ -58,8 +58,8 @@ class ErosionState:
     albedo_fluvial: jax.Array    # (3, W, H)
     albedo_debris: jax.Array     # (3, W, H)
 
-    # Multichannel fields are channel-FIRST so the TPU lane dimension is
-    # always spatial (see PARITY.md on small-lane layout pathologies).
+    # Multichannel fields are channel-FIRST so the minor (contiguous)
+    # dimension is always spatial.
 
     @property
     def height(self):
@@ -85,11 +85,11 @@ class ErosionState:
         `rainfall`/`uplift` given as Python scalars (and the albedos as
         3-colors) are stored as broadcastable (1, 1)/(3, 1, 1) constant
         fields: a constant that only enters elementwise arithmetic needs
-        4 bytes of HBM instead of a full grid (rainfall/uplift/
-        albedo_bedrock pass through every step unchanged — 1.25 GB of
-        arguments + pass-through output copies at 8192²; with
-        `param.trackAlbedo = False` the other three albedo fields stay
-        constant too). Arrays are kept as given. Note
+        4 bytes of device memory instead of a full grid (rainfall/uplift/
+        albedo_bedrock pass through every step unchanged — 5 full-grid
+        fields of arguments plus as many pass-through output copies;
+        with `param.trackAlbedo = False` the other three albedo fields
+        stay constant too). Arrays are kept as given. Note
         `soillib_tpu.models.multiscale` resamples states by field shape
         and needs full-size fields."""
         W, H = int(shape[0]), int(shape[1])
@@ -147,7 +147,7 @@ def erode_step(
 
     `halo` selects execution mode: the default runs single-device; a
     `parallel.ShardHalo` (inside shard_map) runs the identical arithmetic
-    2-D block-decomposed with ICI halo exchanges (see core/halo.py).
+    2-D block-decomposed with halo exchanges (see core/halo.py).
     """
     p = param
     lr = p.lrate
@@ -161,11 +161,10 @@ def erode_step(
         state.momentum, state.albedo_surface, scale, p, key=kf, halo=halo,
     )
     # Sequence the two transport solves: they are data-independent, and
-    # XLA's latency-hiding scheduler otherwise interleaves both cohort
-    # scans, keeping BOTH K-pass staging working sets live at once
-    # (~+5 GB of HLO temps at 8192² — the single-chip capacity margin).
-    # The barrier is an identity; on one TensorCore the solves execute
-    # serially either way, so this costs nothing.
+    # XLA's scheduler may otherwise interleave both cohort loops,
+    # keeping BOTH solves' working sets live at once. The barrier is an
+    # identity; each solve already fills the device, so running them in
+    # turn costs nothing.
     dis, mas, mom, alb_f, d_layers, d_deb, d_dmom, d_alb = \
         jax.lax.optimization_barrier(
             (dis, mas, mom, alb_f, state.layers, state.debris,
@@ -231,8 +230,7 @@ def _compiled_step(frozen_params, scale, steps, donate=False):
         if steps == 1:
             # No fori_loop wrapper for a single step: the while-loop level
             # pins the full state carry alongside the body's temps and
-            # blocks XLA from aliasing the step output onto the input —
-            # ~0.5 GB of headroom at 8192² (the margin it OOMs by).
+            # blocks XLA from aliasing the step output onto the input.
             key, sub = jax.random.split(key)
             return erode_step(state, scale, param, sub)
 
@@ -253,7 +251,7 @@ def make_erode_fn(param: ErosionParams, scale, steps: int = 1,
     `steps` coupled steps. Compilation is cached on (params, scale, steps).
 
     `donate=True` donates the input state's buffers to XLA (halves the
-    state's HBM footprint — the in-place behavior the reference gets from
+    state's device-memory footprint — the in-place behavior the reference gets from
     mutating tensors); the caller's old state becomes invalid, so only use
     it in step-loop patterns like ErosionSim."""
     compiled = _compiled_step(
@@ -265,6 +263,9 @@ def make_erode_fn(param: ErosionParams, scale, steps: int = 1,
             key = jax.random.PRNGKey(0)
         return compiled(state, key)
 
+    # Ahead-of-time view of the same program: fn.lower(state, key)
+    # .compile() exposes compile time, memory_analysis() and the HLO.
+    fn.lower = compiled.lower
     return fn
 
 
@@ -290,10 +291,10 @@ class ErosionSim:
         self.param = param or ErosionParams()
         self.state = state if state is not None else ErosionState.zeros(shape)
         self.key = jax.random.PRNGKey(seed)
-        # Buffer donation halves the state's resident HBM (the old state is
-        # replaced each step so donating is safe semantically), but some
-        # PJRT backends (e.g. tunneled remote TPUs) reject reads of outputs
-        # aliased to donated inputs — hence opt-in.
+        # Buffer donation halves the state's resident device memory (the
+        # old state is replaced each step, so donating is safe), but it
+        # invalidates every outside reference to the previous state —
+        # hence opt-in.
         self.donate = donate
 
     def step(self, n: int = 1):

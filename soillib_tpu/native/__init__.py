@@ -2,7 +2,7 @@
 
 The reference's I/O and CPU-op layers are C++ (libtiff codec io/tiff.hpp,
 PLY writer io/mesh.hpp, FastNoiseLite op/noise.hpp). This package holds
-the equivalent native hot paths for the TPU framework: LZW/PackBits
+the equivalent native host-side hot paths: LZW/PackBits
 decompression (the Python-loop-bound parts of io/tiffcore.py), heightfield
 triangulation + PLY emission, and threaded FBm noise.
 

@@ -1,15 +1,15 @@
-"""Pallas TPU kernel: temporally-blocked age-structured cohort sweep.
+"""Age-structured cohort transport: the per-round field solve.
 
 The cohort transport (models/erosion.py `_cohort_round`-style dynamics:
 per-cell particle cohorts whose velocity/carried-mass state evolves each
 transit, deposits accumulated on arrival) is a *nonlinear* radius-1
-stencil per round — the temporal-blocking argument of ops/sweep.py is
-purely topological (information moves one cell per round), so it applies
-unchanged: load a window with a K-cell halo ring, advance K rounds in
-VMEM, keep the interior. Stale halo values stay finite (divisions are
-eps-guarded, exponents clipped) and never reach the interior within K
-rounds; `jnp.roll` wrap-around lands in the stale ring exactly as in the
-linear kernel.
+stencil per round. Each round is plain `jax.numpy`/`lax` code that XLA
+fuses; `cohort_advance_reference` iterates it, and the sharded solve
+(parallel/halo.py `ShardHalo.run_cohort`) advances the same round
+K rounds at a time between K-wide halo exchanges — information moves
+one cell per round, so stale ring values never reach a block interior
+within K rounds (the trapezoid argument). Stale halo values stay finite
+(divisions are eps-guarded, exponents clipped).
 
 Ref: the per-particle trajectory loop this models is erosion.cu:281-351
 (debris); the deposits are the atomicAdd entries at erosion.cu:311-321.
@@ -21,15 +21,14 @@ State layout (channel-first):
   aux = (3 + A, W, H): [accel_x, accel_y, domain mask, rules aux...]
   G   = (C, W, H) accumulated arrival deposits.
 
-The domain mask (ones over the domain) is what makes temporal blocking
-safe at boundaries: unlike the linear sweep — whose pad cells never emit
-because their *static* directions are zero — cohort state pushed into
-the pad ring would evolve and re-emit within the K in-VMEM rounds. The
-zero padding of aux turns the ring into a kill zone (particles leaving
-the domain die, erosion.cu:281 `__oob`), in every execution mode.
+The domain mask (ones over the domain) is what makes the K-round block
+advance safe at boundaries: cohort state pushed into a zero-padded ring
+would evolve and re-emit within the K rounds, so the zero padding of aux
+turns the ring into a kill zone (particles leaving the domain die,
+erosion.cu:281 `__oob`).
 
 `rules(dL, inv_speed, w, carried, (ux, uy), aux_tail)` is the physics
-callback (traced into the kernel); it returns the implicit-Euler friction
+callback (traced into the round); it returns the implicit-Euler friction
 weight w1 and a tuple of per-attenuation-CLASS transit factors; the static
 attribute `rules.classes` maps each carried channel to its factor class.
 The factor form (rather than pre-multiplied carried totals) is what makes
@@ -44,8 +43,6 @@ import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from soillib_tpu.ops.transport import stepsize_expected, stepsize_var
 
@@ -198,173 +195,6 @@ def _env_closure() -> CohortClosure:
 ENV_CLOSURE = _env_closure()
 
 
-# ---------------------------------------------------------------------------
-# Kernel window geometry (S-dependent: the round-3 NSTATE growth 6 -> 10
-# exceeded Mosaic's VMEM at the fixed S=13-tuned geometry and crashed the
-# 4096² bench — geometry is now chosen per channel count under an explicit
-# budget, with env overrides for tuning sweeps).
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class CohortGeometry:
-    """Temporal-blocking window geometry for the cohort kernel.
-
-    Same Mosaic alignment rules as ops/sweep.py: sx/sy are DMA slice
-    SIZES and must be (8, 128)-aligned; tile offsets i*tile_x / j*tile_y
-    stay aligned because tile_x % 8 == 0 and tile_y % 128 == 0.
-    """
-
-    k: int = 16        # rounds per HBM pass == halo ring width
-    sx: int = 256      # row window (8-mult)
-    sy: int = 640      # col window (128-mult)
-    tile_y: int = 512  # output tile cols (128-mult)
-
-    @property
-    def tile_x(self) -> int:
-        return self.sx - 2 * self.k
-
-    @property
-    def ypad_r(self) -> int:
-        return self.sy - self.tile_y - self.k
-
-    def validate(self) -> "CohortGeometry":
-        assert self.k >= 1, "cohort K must be >= 1"
-        assert self.sx % 8 == 0 and self.sy % 128 == 0, \
-            "window sizes must be (8, 128)-aligned Mosaic DMA slices"
-        assert self.tile_x > 0 and self.tile_x % 8 == 0
-        assert self.tile_y % 128 == 0
-        assert self.tile_y + 2 * self.k <= self.sy, \
-            "col window too small for tile + 2K halo"
-        return self
-
-
-# Budget the auto-chooser fits under. The v5e/v6 VMEM is 128 MiB; Mosaic
-# reserves some for itself and the scheduler's scoped temporaries beyond
-# the model below, so the target leaves headroom. (The round-3 crash:
-# S=17 at the S=13-tuned 256x640 window demanded > 120 MiB of scoped
-# VMEM at 4096².)
-VMEM_BUDGET_BYTES = 100 * 1024 * 1024
-
-# Round-body liveness model, in live (sx, sy) f32 buffers: the fori_loop
-# carry (st, G) is double-buffered by the scheduler, the arrivals stack
-# plus the pre-stack channel list coexist at the round tail, and the
-# closure arithmetic holds a pool of temporaries whose size was
-# CALIBRATED against real Mosaic compiles on TPU v5e (see
-# tests/test_kernel_budget.py and RESULTS.md): the offsets closure round
-# body compiles at geometries the model admits and VMEM-faults at ones
-# it rejects, with the pool constants below.
-_TEMP_POOL_OFFSETS = 48   # quadrant/offset closure temporaries
-_TEMP_POOL_LEGACY = 24    # dispersion-split closure temporaries
-
-
-def cohort_vmem_bytes(S, A, C, geom: CohortGeometry,
-                      closure: CohortClosure | None = None) -> int:
-    """Modeled peak VMEM (bytes) of `_cohort_call` at channel counts
-    (S state, A aux, C deposit) and window geometry `geom` — static
-    scratch shapes plus the round-body liveness model above. The static
-    part is exact (it mirrors `scratch_shapes`); the body part is the
-    calibrated estimate that keeps geometry choices off-TPU-testable."""
-    closure = closure or ENV_CLOSURE
-    f = 4  # f32
-    win = geom.sx * geom.sy
-    tile = geom.tile_x * geom.tile_y
-    static = f * (
-        2 * S * win          # double-buffered state windows
-        + 2 * A * win        # double-buffered aux windows
-        + 2 * C * tile       # old-G tiles
-        + S * tile           # state-out tile
-        + C * tile           # new-G tile
-    )
-    pool = _TEMP_POOL_OFFSETS if closure.offsets else _TEMP_POOL_LEGACY
-    # The N-node mixture advances its node payload generators in
-    # lockstep, so every node's round-body intermediates are live at
-    # once.
-    nnodes = max(1, int(getattr(closure, "nodes", 1) or 1))
-    pool *= nnodes
-    if (getattr(closure, "node_rule", "face") in ("cluster", "speed")
-            and nnodes > 1):
-        # Cluster routing materializes the shifted per-direction channel
-        # stack (4 x per-node channels) plus the distance/mask fields.
-        pool += 4 * (S // nnodes) + 24
-    live = 2 * (S + C) + 2 * S + C + pool
-    return static + f * live * win
-
-
-def geometry_efficiency(g: CohortGeometry, grid=None) -> float:
-    """Useful-work fraction of a window geometry: tile area / window
-    area (halo ring + lane slack recomputed and discarded every round),
-    times the useful fraction of the tile-padded grid when `grid` is
-    known.  The single ranking metric shared by `choose_geometry` and
-    the color-chunk chooser (models/erosion.py), so the two decisions
-    can never silently diverge."""
-    eff = (g.tile_x * g.tile_y) / (g.sx * g.sy)
-    if grid is not None:
-        W, H = grid
-        pad = ((-(-W // g.tile_x) * g.tile_x)
-               * (-(-H // g.tile_y) * g.tile_y))
-        eff *= (W * H) / pad
-    return eff
-
-
-def choose_geometry(S, A, C, closure: CohortClosure | None = None,
-                    budget: int = VMEM_BUDGET_BYTES,
-                    grid=None) -> CohortGeometry:
-    """Largest-efficiency window geometry that fits the VMEM budget at
-    the given channel counts. Efficiency = tile area / window area (the
-    halo ring plus lane slack are computed and thrown away every round;
-    the kernel is VPU-issue-bound, so wasted fraction ≈ wasted time),
-    TIMES the useful fraction of the tile-padded grid when `grid=(W, H)`
-    is known — grid padding dominates the ranking in practice (measured
-    2048² sweep, TPU v5e: ty=640 pads 2048 to 2560 and loses 18% real
-    throughput vs the exactly-dividing ty=512 despite a better window
-    ratio; RESULTS.md round-4 geometry sweep).  Env overrides
-    SOIL_COHORT_{K,SX,SY,TY} pin any subset of the fields (the rest
-    stay auto)."""
-    env = {
-        name: int(v)
-        for name, v in (
-            ("k", os.environ.get("SOIL_COHORT_K")),
-            ("sx", os.environ.get("SOIL_COHORT_SX")),
-            ("sy", os.environ.get("SOIL_COHORT_SY")),
-            ("ty", os.environ.get("SOIL_COHORT_TY")),
-        )
-        if v is not None
-    }
-    cands = []
-    ks = (env["k"],) if "k" in env else (16, 8)
-    for k in ks:
-        tys = (env["ty"],) if "ty" in env else (768, 640, 512, 384, 256, 128)
-        for ty in tys:
-            sy = env.get("sy", ty + 128)
-            sxs = (env["sx"],) if "sx" in env else (
-                512, 448, 384, 320, 256, 224, 192, 160, 128, 96, 64)
-            for sx in sxs:
-                if sx - 2 * k <= 0 or ty + 2 * k > sy:
-                    continue
-                g = CohortGeometry(k=k, sx=sx, sy=sy, tile_y=ty)
-                try:
-                    g.validate()
-                except AssertionError:
-                    continue
-                if cohort_vmem_bytes(S, A, C, g, closure) > budget:
-                    continue
-                cands.append((geometry_efficiency(g, grid), k, sx * sy, g))
-    if not cands:
-        raise ValueError(
-            f"no cohort window geometry fits S={S}, A={A}, C={C} under "
-            f"{budget} bytes of VMEM — use the jnp reference path"
-        )
-    # Rank by efficiency, but prefer LARGER K within an 8% efficiency
-    # band: measured on hardware (round-4 2048² sweep), k=16 beats k=8
-    # at the same window by ~1.5-2% despite the bigger halo ring — the
-    # halved pass count saves carry-copy HBM traffic and DMA latency
-    # the pure area ratio does not see.
-    best_eff = max(c[0] for c in cands)
-    band = [c for c in cands if c[0] >= 0.92 * best_eff]
-    _, _, _, g = max(band, key=lambda c: (c[1], c[0], c[2]))
-    return g
-
 # Inferred-width floor for the offset distributions: one-sided-cut
 # populations are endpoint-anchored uniforms whose width is exactly
 # 2*min(m, 1-m); merged bundles violate that, and the floor keeps a
@@ -373,32 +203,12 @@ def choose_geometry(S, A, C, closure: CohortClosure | None = None,
 _OFF_WMIN = 0.05
 
 
-def _roll_push(payloads):
-    """Roll-based directional push (kernel interior form; wrap-around is
-    absorbed by the stale halo ring / zero boundary padding). `payloads`
-    = (toward +x, -x, +y, -y); called per channel (2-D) by cohort_round —
-    negative axes keep it shape-generic.  A `None` payload is a
-    TRACE-TIME zero (structurally-empty directions, e.g. the own-axis
-    offset reset channels) and contributes neither a roll nor an add."""
-    pxp, pxn, pyp, pyn = payloads
-    terms = []
-    if pxp is not None:
-        terms.append(jnp.roll(pxp, 1, axis=-2))
-    if pxn is not None:
-        terms.append(jnp.roll(pxn, -1, axis=-2))
-    if pyp is not None:
-        terms.append(jnp.roll(pyp, 1, axis=-1))
-    if pyn is not None:
-        terms.append(jnp.roll(pyn, -1, axis=-1))
-    out = terms[0]
-    for t in terms[1:]:
-        out = out + t
-    return out
-
-
 def shift_push(payloads):
-    """Zero-boundary directional push (reference form: pad + slice).
-    `None` payloads are trace-time zeros (see _roll_push)."""
+    """Zero-boundary directional push: `payloads` = (toward +x, -x, +y,
+    -y), each pad + slice shifted one cell along its axis (negative axes
+    keep it shape-generic). A `None` payload is a TRACE-TIME zero
+    (structurally-empty directions, e.g. the own-axis offset reset
+    channels) and contributes neither a shift nor an add."""
 
     def shift_from(a, dx, dy):
         pad = [(0, 0)] * (a.ndim - 2) + [(max(0, dx), max(0, -dx)),
@@ -427,9 +237,9 @@ def shift_push(payloads):
 def _norm_cdf(z, gauss):
     """Standard-normal CDF via the Abramowitz-Stegun 7.1.26 rational
     erf approximation (max abs error 1.5e-7 — below f32 noise on the
-    stream weights): `jax.lax.erf` has no Pallas TPU lowering, and the
-    jnp reference path uses this same approximation so the kernel and
-    reference stay numerically identical.
+    stream weights). The goldens (tests/test_golden.py) are pinned to
+    this approximation, so swapping in `jax.lax.erf` is a deliberate
+    re-pin, not a refactor.
 
     `gauss` = exp(-z²/2), shared with the caller's phi — the erf
     approximation needs exp(-x²) at x = z/√2, which is the same value,
@@ -539,9 +349,9 @@ def _cond_stream(c_own, m2_own, mu_own, mu_t, m2_t, b, var_own):
     own-axis conditional moments (c_own = E[v_own|S], m2_own =
     E[v_own^2|S]). b = None is the xmom-off TRACE-TIME specialization —
     bitwise-identical to b = 0 (every dropped term is exactly +0.0) but
-    ~18 fewer VPU ops per call: the kernel is issue-bound, and counting
-    multiply-by-structural-zero work would also overstate the compute
-    roofline that bench.py's vs_baseline divides by. The m2 floor at
+    ~18 fewer elementwise ops per call, and counting multiply-by-
+    structural-zero work would also overstate the compute roofline that
+    bench.py's vs_baseline divides by. The m2 floor at
     mean² guards against roundoff producing a negative conditional
     variance."""
     if b is None:
@@ -636,8 +446,8 @@ def _stream_advance(w1, dL, dvar, ax, ay, mx, my, m2x_, m2y_, mxy_):
 def cohort_round(st, G, aux, rules, Llen, push, closure=None):
     """One cohort transit: mix -> particle-state step -> push -> deposit.
 
-    Shared verbatim by the jnp reference loop, the Pallas kernel and the
-    sharded block advance, so all three stay numerically identical.
+    Shared verbatim by the single-device loop and the sharded block
+    advance, so the two stay numerically identical.
 
     The physics per ensemble lives in `_round_payloads`; this assembles
     the pushed arrivals — for the default single-node closure each
@@ -645,7 +455,7 @@ def cohort_round(st, G, aux, rules, Llen, push, closure=None):
     `closure.nodes` in (2, 4) arrivals are routed into separate
     sub-ensembles by ENTRY FACE (see _cohort_round_nodes); for
     `closure.colors` M > 1 the state carries M independent color groups
-    (disjoint birth sub-populations batched through one kernel — see
+    (disjoint birth sub-populations batched through one solve — see
     CohortClosure.colors) whose deposits sum and whose ensembles never
     exchange."""
     cl = closure or ENV_CLOSURE
@@ -693,7 +503,7 @@ def _cohort_round_cluster(st, G, aux, rules, Llen, push, cl, nnodes):
     Costs ~16% over face routing (4 single-direction pushes replace the
     4-tuple push per channel, plus 4x4 distance masks and the routing
     multiplies); the shifted per-direction channel stack must be
-    materialized, which `cohort_vmem_bytes` budgets for."""
+    materialized."""
     S = st.shape[0]
     P = S // nnodes
     speed_mode = getattr(cl, "node_rule", "face") == "speed"
@@ -938,8 +748,7 @@ def _round_payloads(st, aux, rules, Llen, cl, ratio_sink=None):
     Yields, for each output channel in state-layout order (NSTATE moment
     channels, then the carried-total deposits), the 4-tuple of payloads
     pushed toward (+x, -x, +y, -y).  A generator so the consumer pushes
-    each channel as it is produced — the channel-wise peak-VMEM
-    discipline of the Pallas kernel (never four full stream stacks at
+    each channel as it is produced (never four full stream stacks at
     once).
 
     The cohort velocity is a Gaussian moment closure — per-axis mean,
@@ -1158,7 +967,7 @@ def _round_payloads(st, aux, rules, Llen, cl, ratio_sink=None):
     # roundoff and the carried clip can push |cov| past sqrt(varx*vary),
     # which would make conditional variances negative).  xmom off: the
     # coefficients are None — the trace-time-zero specialization of
-    # _cond_stream (bitwise-identical, no mul-by-zero VPU work).
+    # _cond_stream (bitwise-identical, no mul-by-zero work).
     if cl.xmom:
         varx = jnp.maximum(m2x - vbx * vbx, 0.0)
         vary = jnp.maximum(m2y - vby * vby, 0.0)
@@ -1261,8 +1070,8 @@ def _round_payloads(st, aux, rules, Llen, cl, ratio_sink=None):
             # uniform offsets make every variant collapse to the legacy
             # formulas.  Only genuinely bidirectional cells with
             # coherent off-center offsets (pit oscillation) see the
-            # pooling, at ~300 fewer fma-eq/cell-round (bench.py; the
-            # kernel is VPU-issue-bound).  Parity: the coupled nets in
+            # pooling, at ~300 fewer ops/cell-round (bench.py
+            # _count_ops).  Parity: the coupled nets in
             # tests/test_erosion.py hold at the same levels, goldens
             # re-pinned (tools/gen_goldens.py) — see RESULTS.md round 5.
             _, ux_r, uy_r = _stream_geom(m2x, m2y)
@@ -1289,8 +1098,7 @@ def _round_payloads(st, aux, rules, Llen, cl, ratio_sink=None):
 
     # CHANNEL-WISE payload emission: each output channel's four
     # directional payloads are built (and pushed by the consumer)
-    # independently — never the four (S, W, H) stream stacks at once
-    # (peak-VMEM discipline in the Pallas kernel; see ops/sweep.py).
+    # independently — never the four (S, W, H) stream stacks at once.
     wxp_a, wxn_a = wa * wxp, wa * wxn
     wyp_a, wyn_a = wa * wyp, wa * wyn
 
@@ -1344,30 +1152,17 @@ def _round_payloads(st, aux, rules, Llen, cl, ratio_sink=None):
 
 
 def as_stack(x):
-    """(S, W, H) array from a channel sequence (identity for arrays).
-
-    The lazy channel-sequence form exists so the Pallas path can build its
-    padded staging buffer channel-by-channel without ever materializing
-    the unpadded stack next to it — at 8192² the stack + its padded copy
-    are ~6 GB of coexisting HLO temps, the single-chip capacity margin."""
+    """(S, W, H) array from a channel sequence (identity for arrays)."""
     if isinstance(x, (list, tuple)):
         return jnp.stack([jnp.asarray(c, jnp.float32) for c in x], axis=0)
     return jnp.asarray(x)
-
-
-def _channels(x):
-    """Channel list view of a stacked array or channel sequence."""
-    if isinstance(x, (list, tuple)):
-        return [jnp.asarray(c, jnp.float32) for c in x]
-    x = jnp.asarray(x)
-    return [x[i] for i in range(x.shape[0])]
 
 
 def n_deposits(S, closure=None):
     """Deposit-channel count C of an S-channel cohort state: the state
     holds `closure.colors * closure.nodes` independent ensembles of
     (NSTATE moments + C carried) — color groups batch the quality-mode
-    birth partition through ONE kernel invocation, node groups the
+    birth partition through ONE solve, node groups the
     face-routed mixture; deposits sum over all of them."""
     cl = closure or ENV_CLOSURE
     nnodes = int(getattr(cl, "nodes", 1) or 1)
@@ -1392,7 +1187,7 @@ def carried_live(ST, closure=None):
     `carried_live(ST) * rounds_remaining` bounds the tail of the
     deposit sum; the adaptive solves stop when that bound drops below
     `tol` of the accumulated deposits (f32-roundoff-equivalent to the
-    full fixed depth; see cohort_advance).  For NON-contractive rules
+    full fixed depth; see cohort_advance_reference).  For NON-contractive rules
     (debris: the suspension factor exceeds 1 above the yield-stress
     balance, so carried mass can GROW between rounds) the bound is
     invalid and `tail_converged` instead requires live == 0 exactly —
@@ -1401,9 +1196,9 @@ def carried_live(ST, closure=None):
     collapses cohort speed, the alive mask kills the cohort, and its
     state is overwritten by (zero) arrivals.  The reference runs its
     trajectory loop to the fixed maxage bound instead (erosion.cu:101)
-    — on GPU dead particles are cheap warp-idle lanes; on TPU whole
-    dead ROUNDS are full-cost HBM passes, which is why the
-    faithful-depth default wants the exit."""
+    — there dead particles are idle threads, here a dead ROUND is a
+    full-cost pass over the state, which is why the faithful-depth
+    default wants the exit."""
     S = ST.shape[0]
     C = n_deposits(S, closure)
     P = NSTATE + C
@@ -1477,288 +1272,7 @@ def cohort_advance_reference(st0, aux, rules, iters, Llen, *, closure=None,
     return jax.lax.fori_loop(0, int(iters), body, (st0, G0))
 
 
-def _cohort_kernel(rounds, S, C, gh, n_tiles, Llen, rules, closure, geom,
-                   st_hbm, aux_hbm, g_in_hbm,
-                   st_out_hbm, g_out_hbm,
-                   st_v, aux_v, gold_v, stout_v, gnew_v, sems, out_sems):
-    """Double-buffered window pipeline (see ops/sweep.py `_sweep_kernel`):
-    tile t's windows DMA while t-1 computes. Outputs are SPLIT — the
-    advanced state interior goes to st_out, and the running deposit total
-    is accumulated IN KERNEL: the old G tile is DMA'd in, the pass's
-    deposits added, and the sum written back to g_out, which the caller
-    aliases onto g_in (tiles are disjoint, so the read-modify-write has
-    no cross-tile hazard). This removes the host-side G add and the
-    fresh (S+C)-channel output block per pass — at 8192² that block plus
-    the host re-pad were ~8 GB of HLO temps."""
-    t = pl.program_id(0)
-    slot = jax.lax.rem(t, 2)
-    TX, TY = geom.tile_x, geom.tile_y
-    WSX, WSY, HK = geom.sx, geom.sy, geom.k
-
-    def in_dmas(s, ti):
-        ii = ti // gh
-        jj = jax.lax.rem(ti, gh)
-        x0 = ii * TX
-        y0 = jj * TY
-        return [
-            pltpu.make_async_copy(
-                st_hbm.at[:, pl.ds(x0, WSX), pl.ds(y0, WSY)], st_v.at[s],
-                sems.at[s, 0],
-            ),
-            pltpu.make_async_copy(
-                aux_hbm.at[:, pl.ds(x0, WSX), pl.ds(y0, WSY)], aux_v.at[s],
-                sems.at[s, 1],
-            ),
-            pltpu.make_async_copy(
-                g_in_hbm.at[:, pl.ds(ii * TX, TX),
-                            pl.ds(jj * TY, TY)], gold_v.at[s],
-                sems.at[s, 2],
-            ),
-        ]
-
-    def out_dmas(ti):
-        ii = ti // gh
-        jj = jax.lax.rem(ti, gh)
-        tile = (pl.ds(ii * TX, TX), pl.ds(jj * TY, TY))
-        return [
-            pltpu.make_async_copy(
-                stout_v, st_out_hbm.at[:, tile[0], tile[1]],
-                out_sems.at[0],
-            ),
-            pltpu.make_async_copy(
-                gnew_v, g_out_hbm.at[:, tile[0], tile[1]],
-                out_sems.at[1],
-            ),
-        ]
-
-    @pl.when(t == 0)
-    def _():
-        for c in in_dmas(0, 0):
-            c.start()
-
-    @pl.when(t + 1 < n_tiles)
-    def _():
-        for c in in_dmas(1 - slot, t + 1):
-            c.start()
-
-    for c in in_dmas(slot, t):
-        c.wait()
-
-    aux = aux_v[slot]
-
-    def body(_, carry):
-        st, G = carry
-        return cohort_round(st, G, aux, rules, Llen, _roll_push, closure)
-
-    st = st_v[slot]
-    G0 = jnp.zeros((C,) + st.shape[1:], jnp.float32)
-    st, G = jax.lax.fori_loop(0, rounds, body, (st, G0))
-
-    # SINGLE-buffered output scratch: tile t-1's write-back had a full
-    # tile-compute (~ms) to drain (~tens of µs), so waiting on it here
-    # before overwriting the buffer never stalls in practice, and the
-    # saved VMEM goes to larger (lower halo-overhead) windows.
-    @pl.when(t >= 1)
-    def _():
-        for c in out_dmas(t - 1):
-            c.wait()
-
-    stout_v[...] = st[:, HK:HK + TX, HK:HK + TY]
-    gnew_v[...] = gold_v[slot] + G[:, HK:HK + TX, HK:HK + TY]
-    for c in out_dmas(t):
-        c.start()
-
-    @pl.when(t + 1 >= n_tiles)
-    def _():
-        for c in out_dmas(t):
-            c.wait()
-
-
-def _cohort_call(STp, AUXp, G, rules, rounds, Llen, grid_wh, interpret,
-                 closure, geom):
-    """One K-blocked pass: (padded state, padded aux, running deposits) ->
-    (advanced unpadded state, updated deposits). G is donated — the
-    deposit output aliases it (in-place tile read-modify-write)."""
-    S = STp.shape[0]
-    A = AUXp.shape[0]
-    C = n_deposits(S, closure)
-    gw, gh = grid_wh
-    n_tiles = gw * gh
-    TX, TY = geom.tile_x, geom.tile_y
-
-    def kernel(*refs):
-        _cohort_kernel(rounds, S, C, gh, n_tiles, Llen, rules, closure,
-                       geom, *refs)
-
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[any_spec] * 3,
-        out_specs=(any_spec, any_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((S, gw * TX, gh * TY), jnp.float32),
-            jax.ShapeDtypeStruct((C, gw * TX, gh * TY), jnp.float32),
-        ),
-        input_output_aliases={2: 1},
-        scratch_shapes=[
-            pltpu.VMEM((2, S, geom.sx, geom.sy), jnp.float32),  # state wins
-            pltpu.VMEM((2, A, geom.sx, geom.sy), jnp.float32),  # aux wins
-            pltpu.VMEM((2, C, TX, TY), jnp.float32),  # old G tiles
-            pltpu.VMEM((S, TX, TY), jnp.float32),     # state out
-            pltpu.VMEM((C, TX, TY), jnp.float32),     # new G tile
-            pltpu.SemaphoreType.DMA((2, 3)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=120 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(STp, AUXp, G)
-
-
-def cohort_advance(st0, aux, rules, iters, Llen, *, interpret=False,
-                   closure=None, geometry=None, tol=0.0):
-    """`iters` cohort transit rounds with K-blocked HBM passes.
-
-    Args:
-      st0: (NSTATE+C, W, H) initial cohort state (weight, momentum,
-        second velocity moments, sub-cell offsets, carried totals) — a
-        stacked array or a sequence of (W, H) channels (preferred: see
-        `as_stack`).
-      aux: (3+A, W, H) static per-cell fields: acceleration, domain
-        mask, rules aux — stacked or a channel sequence.
-      rules: physics callback (see module docstring); traced into the
-        kernel, so it must be jnp-pure with static captured scalars.
-      iters: transit rounds (static).
-      Llen: cell diagonal [m].
-      closure: CohortClosure (None -> the SOIL_COHORT_* env defaults).
-      geometry: CohortGeometry (None -> `choose_geometry` picks the most
-        efficient window that fits the VMEM budget at these channel
-        counts — the S-dependence that keeps state growth from VMEM-
-        faulting Mosaic, the round-3 4096² bench crash).
-      tol: > 0 enables the convergence-adaptive exit between K-blocks:
-        the pass loop stops once `carried_live(state) * rounds_remaining
-        <= tol * deposit_gauge(G)` per channel — the skipped tail is
-        bounded below tol of the accumulated deposits, so the result
-        matches the fixed-depth solve to f32 roundoff at tol ~1e-6
-        (tests/test_cohort_adaptive.py).  This is what makes the
-        reference-faithful default depth (maxage-2 = 510 rounds,
-        erosion.cu:101) affordable: rounds run only while cohorts still
-        carry weight.  Forward-only (lax.while_loop); keep tol=0 for
-        differentiable solves.
-    Returns:
-      (advanced (NSTATE+C, W, H) state, (C, W, H) accumulated deposits),
-      matching `cohort_advance_reference` to f32 roundoff.
-    """
-    st_ch = _channels(st0)
-    aux_ch = _channels(aux)
-    S = len(st_ch)
-    W, H = st_ch[0].shape
-    C = n_deposits(S, closure)
-    A = len(aux_ch)
-    geom = geometry or choose_geometry(S, A, C, closure, grid=(W, H))
-    geom.validate()
-    K = geom.k
-    TX, TY = geom.tile_x, geom.tile_y
-    gw = -(-W // TX)
-    gh = -(-H // TY)
-    Wp, Hp = gw * TX, gh * TY
-
-    def build_padded(chs):
-        """Zero-padded staging stack, built one channel at a time: each
-        producer fuses into its dynamic_update_slice, so the peak is the
-        stack plus ONE channel — never stack + unpadded copy (6 GB of
-        coexisting temps at 8192² the jnp.pad route holds)."""
-        out = jnp.zeros((len(chs), Wp + 2 * K, Hp + K + geom.ypad_r),
-                        jnp.float32)
-        for i, c in enumerate(chs):
-            out = jax.lax.dynamic_update_slice(out, c[None], (i, K, K))
-        return out
-
-    AUXp = build_padded(aux_ch)
-    # The state rides PADDED through the whole solve: the halo ring is
-    # zeroed once here and never written again (the kernel writes the
-    # interior only, via dynamic_update_slice on the scan carry), so no
-    # per-pass re-pad copy or fresh padded temp exists. With the deposit
-    # buffer aliased through the kernel, peak extra memory per pass is
-    # ONE unpadded state block (at 8192² the old concat-output + re-pad
-    # scheme held ~8 GB of HLO temps).
-    STp = build_padded(st_ch)
-    G = jnp.zeros((C, Wp, Hp), jnp.float32)
-
-    def one_pass(STp, G, r):
-        st_out, G = _cohort_call(
-            STp, AUXp, G, rules, r, Llen, (gw, gh), interpret,
-            closure, geom,
-        )
-        STp = jax.lax.dynamic_update_slice(STp, st_out, (0, K, K))
-        return STp, G
-
-    n_full, rem = divmod(int(iters), K)
-    if tol and tol > 0.0 and n_full:
-        # Convergence-adaptive pass loop.  The live/gauge reductions read
-        # the padded state's carried channels + G once per pass (~15% of
-        # the kernel pass's own HBM traffic) — the price of cutting the
-        # faithful 510-round depth down to the rounds that still carry
-        # weight.  The padded ring/pad cells are included in the sums:
-        # they hold at most one round of arrivals into the kill zone
-        # (dead cells never re-emit), so they only delay the exit by at
-        # most one pass, never allow an early one.
-        contractive = bool(getattr(rules, "contractive", False))
-
-        def cond(carry):
-            i, STp, G = carry
-            live = carried_live(STp, closure)
-            remaining = jnp.float32(iters) - jnp.float32(K) * i
-            return (i < n_full) & ~tail_converged(
-                live, deposit_gauge(G), remaining, tol, contractive
-            )
-
-        def body(carry):
-            i, STp, G = carry
-            STp, G = one_pass(STp, G, K)
-            return i + 1.0, STp, G
-
-        _, STp, G = jax.lax.while_loop(
-            cond, body, (jnp.float32(0.0), STp, G)
-        )
-        if rem:
-            # Skip the static tail pass too once converged (its deposits
-            # sit under the same bound).
-            live = carried_live(STp, closure)
-            done = tail_converged(live, deposit_gauge(G), rem, tol,
-                                  contractive)
-            STp, G = jax.lax.cond(
-                done, lambda st, g: (st, g),
-                lambda st, g: one_pass(st, g, rem), STp, G,
-            )
-        return STp[:, K:K + W, K:K + H], G[:, :W, :H]
-    if n_full:
-        # lax.scan, NOT a Python loop: unrolled passes compile one pallas
-        # call per pass and the TPU scheduler hoists the calls above the
-        # carry updates, keeping every pass's output block live at once
-        # (default 512-round config = 32 passes = tens of GB of HLO
-        # temps, compile OOM at 4096²). The scan body reuses one set of
-        # buffers regardless of pass count.
-        def body(carry, _):
-            return one_pass(*carry, K), None
-
-        (STp, G), _ = jax.lax.scan(body, (STp, G), None, length=n_full)
-    if rem:
-        STp, G = one_pass(STp, G, rem)
-    return STp[:, K:K + W, K:K + H], G[:, :W, :H]
-
-
-def use_pallas() -> bool:
-    """Pallas (Mosaic) on TPU; jnp reference elsewhere (CPU tests)."""
-    return jax.default_backend() == "tpu"
-
-
 def run_cohort(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
-    """Backend-dispatched single-device cohort solve -> deposits."""
-    if use_pallas():
-        return cohort_advance(st0, aux, rules, int(iters), Llen,
-                              closure=closure, tol=tol)[1]
+    """Single-device cohort solve -> deposits."""
     return cohort_advance_reference(st0, aux, rules, int(iters), Llen,
                                     closure=closure, tol=tol)[1]

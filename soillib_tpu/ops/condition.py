@@ -2,8 +2,8 @@
 
 The reference conditions DEMs with the external `pysheds` package
 (fill_pits / fill_depressions / resolve_flats, dem_condition.py:32-41)
-before running its own flow ops. Here conditioning is native and
-TPU-idiomatic: the Planchon–Darboux "flooding" algorithm expressed as an
+before running its own flow ops. Here conditioning is native: the
+Planchon–Darboux "flooding" algorithm expressed as an
 iterated D4/D8 min-stencil —
 
     W0 = +inf everywhere except boundary cells (= h there)
@@ -11,7 +11,7 @@ iterated D4/D8 min-stencil —
 
 which fills every closed depression to its spill level (+ a tiny epsilon
 gradient so flow directions resolve across the filled flats, the role of
-pysheds' resolve_flats). Each sweep is one fused VPU stencil pass; the
+pysheds' resolve_flats). Each sweep is one fused stencil pass; the
 iteration count is bounded by the longest drainage path, checked with a
 convergence test inside `lax.while_loop`.
 """

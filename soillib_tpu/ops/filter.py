@@ -10,7 +10,7 @@ returns it (filter.cu:82-90) — this is a pure function returning a new array;
 in JAX, donation/aliasing under jit recovers the in-place memory behavior.
 
 Implementation: each pass is a 33-tap 1-D correlation. We express it as a
-sum of 33 statically-shifted reads so XLA fuses it into one VPU pass per
+sum of 33 statically-shifted reads so XLA fuses it into one pass per
 axis; with clamp-to-edge handled by index clamping.
 """
 

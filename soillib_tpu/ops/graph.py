@@ -1,10 +1,10 @@
 """DEM flow-graph operations (reference: model/graph/graph.cu).
 
-TPU-native re-designs:
+Re-designs for XLA:
 
 * `steepest` / `direction`: the per-cell neighbor loop becomes a vectorized
   argmax over K statically-shifted copies of the height field — one fused
-  VPU pass, no gather (ref kernels: graph.cu:28-91, 202-264).
+  elementwise pass, no gather (ref kernels: graph.cu:28-91, 202-264).
 
 * `random_weighted`: the per-cell Gibbs CDF + inverse-transform sample
   (graph.cu:104-173) becomes a masked softmax-style cumulative sum over the
@@ -12,8 +12,8 @@ TPU-native re-designs:
   (seed, offset), replacing curand state grids (graph.cu:97-101).
 
 * `accumulate` / `accumulate_decay`: the reference contracts the donor
-  forest with an O(log N) rake-compress ping-pong (graph.cu:430-576). On
-  TPU we use an equivalent O(log N) *pointer-doubling* contraction: with
+  forest with an O(log N) rake-compress ping-pong (graph.cu:430-576).
+  Here an equivalent O(log N) *pointer-doubling* contraction: with
   M the (nilpotent) weighted receiver matrix — M[j, i] = w_i iff cell i
   drains to j — upstream accumulation is
 
@@ -289,25 +289,16 @@ def graph_to_slots(graph, edge: int = D8):
     return slot
 
 
-def _auto_method(method, shape):
-    if method is not None:
-        return method
-    if jax.default_backend() != "tpu":
-        # Pointer-doubling is O(log N) random-access gathers — fast on CPU.
-        return "doubling"
-    # On TPU, gathers serialize: use dense stencil fixed points. Beyond one
-    # tile, the two-level local/boundary split (ops/graph_tiled.py) caps
-    # the round count at the in-tile path length.
-    from soillib_tpu.ops.graph_tiled import TILE
-
-    return "tiled" if max(shape) > TILE else "stencil"
+# The method `accumulate` uses when none is named: the fastest of the
+# three on the GPU at 4096² (chip_smoke.py's dem phase times all three).
+DEFAULT_METHOD = "doubling"
 
 
 def _accumulate_dispatch(g, value, w, edge, method, max_iters):
     shifts_for(edge)  # validate up front: the doubling path never reads it
     # Scalar value == uniform rain; broadcast so every method sees (W, H).
     value = jnp.broadcast_to(jnp.asarray(value, jnp.float32), g.shape)
-    method = _auto_method(method, g.shape)
+    method = method or DEFAULT_METHOD
     if method == "tiled":
         from soillib_tpu.ops.graph_tiled import accumulate_tiled
 
@@ -329,8 +320,8 @@ def accumulate(graph, value, edge: int = D8, *, method: str = None,
                max_iters: int = None):
     """Upstream accumulation: out[j] = value[j] + Σ_{i upstream of j} value[i].
     Ref: graph.cu:527-584 (rake-compress). Methods: "doubling" (O(log N)
-    gathers; CPU default), "stencil" (dense one-hot fixed point), "tiled"
-    (two-level local/boundary split; TPU default past one tile)."""
+    gathers; the default), "stencil" (dense one-hot fixed point), "tiled"
+    (two-level local/boundary split)."""
     g = jnp.asarray(graph)
     return _accumulate_dispatch(g, value, None, edge, method, max_iters)
 

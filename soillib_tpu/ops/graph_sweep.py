@@ -1,24 +1,25 @@
-"""Stencil-form flow accumulation (gather-free, TPU-native).
+"""Stencil-form flow accumulation (gather-free).
 
 The pointer-doubling contraction (ops/graph.py) resolves the receiver
-forest in O(log N) rounds but each round is a random-access gather —
-fast on CPU, very slow on TPU (XLA lowers 1-D gathers serially). This
-module exploits the graph's structure instead: every edge points to one
+forest in O(log N) rounds but each round is a random-access gather and
+scatter. This module exploits the graph's structure instead: every edge
+points to one
 of the 8 NEIGHBORS, so one accumulation hop is a dense 8-direction
 one-hot push
 
     A' = v + PUSH_w(A),   PUSH_w(A)[j] = sum_{d} w * A[j - shift_d]
                                           where slot[j - shift_d] == d,
 
-a pure VPU stencil (8 masked rolls). The fixed point — reached after
+a pure elementwise stencil (8 masked rolls). The fixed point — reached after
 L rounds, L = longest drainage path — equals the exact upstream
 accumulation; with per-donor decay weights it equals accumulate_decay
 (my_decay semantics incl. diagonal decay^1.414, graph.cu:383-420).
 
 Convergence is detected every BLOCK rounds (values stabilize exactly once
 all paths have resolved, so the check is a bitwise compare), bounded by
-`max_iters`. Rounds are cheap (one fused pass over 2 fields + masks), so
-even L in the thousands beats 20 gather rounds on TPU by ~40x at 1024².
+`max_iters`. Rounds are cheap (one fused pass over 2 fields + masks);
+which method wins on a device is measured, not assumed (ops/graph.py
+`_auto_method`).
 
 Ref: the workload this serves is graph.cu:527-593 (accumulate /
 accumulate_decay, the rake-compress kernels).
@@ -73,9 +74,7 @@ def fixed_point(step, init, max_iters):
 
 
 def roll2(a, dx, dy):
-    """jnp.roll by (dx, dy) as per-axis rolls, skipping zero shifts: a
-    zero shift lowers to a zero-sized vector slice, which Mosaic rejects
-    when the roll runs inside a Pallas kernel (graph_tiled.py)."""
+    """jnp.roll by (dx, dy) as per-axis rolls, skipping zero shifts."""
     if dx:
         a = jnp.roll(a, dx, axis=0)
     if dy:

@@ -16,25 +16,20 @@ tile-based decomposition of Barnes' trillion-cell flow accumulation
      weight product (D).
   3. COARSE: cross-tile fluxes close over BOUNDARY cells only (an entry
      cell's chain exits at another boundary cell), a ~4N/TILE-node linear
-     system solved by pointer-doubling on compact arrays (gathers on tiny
-     arrays are cheap even on TPU).
+     system solved by pointer-doubling on compact arrays.
   4. INJECT: place the converged entry fluxes back on the grid and run the
      masked stencil once more to distribute them downstream in-tile.
 
 Exact for any per-donor edge weights (accumulate_decay's my_decay
 semantics included). All four phases are data-parallel; phases 1/2/4 are
-dense VPU stencils, phase 3 is O(#boundary · tiles-crossed) scalar work.
+dense stencils, phase 3 is O(#boundary · tiles-crossed) scalar work.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 from soillib_tpu.core.grid import D8, shifts_for
 from soillib_tpu.ops.graph_sweep import _push_once, fixed_point, roll2
@@ -82,8 +77,8 @@ def _boundary_indices(W, H):
 def _boundary_rank(W, H, flat, fallback):
     """Compact position of global flat index `flat` within
     `_boundary_indices(W, H)` — closed form (the boundary pattern is
-    periodic), replacing sort + searchsorted: the argsort/searchsorted
-    rank was 135 ms of a 716 ms 4096² accumulation. `flat` < 0 (or not a
+    periodic), replacing an argsort + searchsorted over the boundary
+    set (`graph.compact_index`). `flat` < 0 (or not a
     boundary cell's index — never queried) maps to `fallback`."""
     T = TILE
     f = jnp.maximum(flat, 0)
@@ -107,116 +102,12 @@ def _boundary_rank(W, H, flat, fallback):
     return jnp.where(flat >= 0, rank, fallback)
 
 
-# ---------------------------------------------------------------------------
-# VMEM-resident tile solves (Pallas). Phases 1/2/4 are per-tile fixed
-# points (every cross-tile edge is cut), so each tile's solve is fully
-# self-contained: load the tile into VMEM once, iterate to bitwise
-# convergence there, write the result once — ONE HBM pass per phase
-# instead of one every BLOCK rounds of the full-grid fixed point. The
-# kernels reuse `fixed_point` / `_push_once` / `_pull` verbatim, so the
-# Pallas and jnp paths are the same arithmetic in the same order
-# (bitwise-equal results; tests/test_graph_tiled.py).
-# ---------------------------------------------------------------------------
-
-
-def _local_fp_kernel(edge, max_iters, lslot_ref, src_ref, w_ref, out_ref):
-    """Per-tile local accumulation. jnp.roll wrap lanes land only on
-    donors whose edges are cut (payload 0), exactly as in the full-grid
-    form."""
-    slot = lslot_ref[...]
-    src = src_ref[...]
-    w = w_ref[...]
-    out_ref[...] = fixed_point(
-        lambda G: _push_once(w * (src + G), slot, edge),
-        jnp.zeros_like(src), max_iters,
-    )
-
-
-def _trace_kernel(edge, max_iters, slot_ref, cross_ref, recv_ref, w_ref,
-                  x_out, d_out):
-    """Per-tile chain trace: every pulled value comes from the cell's
-    in-tile receiver (cells whose receiver is off-tile hold their X0/D0
-    boundary condition), so the tile solve is self-contained."""
-    slot = slot_ref[...]
-    cross = cross_ref[...] != 0
-    recv = recv_ref[...]
-    w = w_ref[...]
-    is_root = slot < 0
-    X0 = jnp.where(cross, recv, -1)
-    D0 = jnp.where(is_root, 0.0, w)
-    in_tile = ~cross & ~is_root
-
-    def trace(c):
-        X, D = c
-        Xr = _pull(X, slot, edge, -1)
-        Dr = _pull(D, slot, edge, 0.0)
-        return (
-            jnp.where(in_tile, Xr, X0),
-            jnp.where(in_tile, w * Dr, D0),
-        )
-
-    X, D = fixed_point(trace, (X0, D0), max_iters)
-    x_out[...] = X
-    d_out[...] = D
-
-
-def _pad_tiles(a, fill):
-    W, H = a.shape
-    gw, gh = -(-W // TILE), -(-H // TILE)
-    return jnp.pad(
-        a, ((0, gw * TILE - W), (0, gh * TILE - H)), constant_values=fill
-    ), (gw, gh)
-
-
-def _tile_spec():
-    return pl.BlockSpec((TILE, TILE), lambda i, j: (i, j))
-
-
-def _local_fp_pallas(lslot, src, w, edge, max_iters, interpret):
-    W, H = src.shape
-    ls, (gw, gh) = _pad_tiles(lslot, -1)
-    out = pl.pallas_call(
-        functools.partial(_local_fp_kernel, edge, max_iters),
-        grid=(gw, gh),
-        in_specs=[_tile_spec()] * 3,
-        out_specs=_tile_spec(),
-        out_shape=jax.ShapeDtypeStruct(ls.shape, jnp.float32),
-        interpret=interpret,
-    )(ls, _pad_tiles(src, 0)[0], _pad_tiles(w, 0)[0])
-    return out[:W, :H]
-
-
-def _trace_pallas(slot, cross, recv, w, edge, max_iters, interpret):
-    W, H = slot.shape
-    sl, (gw, gh) = _pad_tiles(slot, -1)
-    X, D = pl.pallas_call(
-        functools.partial(_trace_kernel, edge, max_iters),
-        grid=(gw, gh),
-        in_specs=[_tile_spec()] * 4,
-        out_specs=(_tile_spec(), _tile_spec()),
-        out_shape=(
-            jax.ShapeDtypeStruct(sl.shape, jnp.int32),
-            jax.ShapeDtypeStruct(sl.shape, jnp.float32),
-        ),
-        interpret=interpret,
-    )(
-        sl,
-        _pad_tiles(cross.astype(jnp.int32), 0)[0],
-        _pad_tiles(recv, 0)[0],
-        _pad_tiles(w, 0)[0],
-    )
-    return X[:W, :H], D[:W, :H]
-
-
 def accumulate_tiled(direction_slots, value, weight=None, edge: int = D8,
-                     max_iters: int = None, tile_solver: str = None):
+                     max_iters: int = None):
     """Exact upstream accumulation via the two-level scheme.
 
     Args match ops.graph_sweep.accumulate_stencil; result is identical to
-    the single-level fixed point / pointer doubling. `tile_solver` picks
-    the phase-1/2/4 engine: "pallas" (VMEM-resident tile fixed points —
-    the TPU default; interpreted off-TPU), "jnp" (full-grid fixed
-    points), None = auto by backend.
+    the single-level fixed point / pointer doubling.
     """
     slot = jnp.asarray(direction_slots)
     v = jnp.asarray(value, jnp.float32)
@@ -233,48 +124,36 @@ def accumulate_tiled(direction_slots, value, weight=None, edge: int = D8,
     is_root = slot < 0
     lslot, cross = _local_slot(W, H, slot, edge)
 
-    if tile_solver is None:
-        tile_solver = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    use_pl = tile_solver == "pallas"
-    interp = use_pl and jax.default_backend() != "tpu"
-    # In-kernel bound: the longest IN-TILE path visits each tile cell once.
-    tile_iters = min(int(max_iters), TILE * TILE)
-
     # Per cell: the receiver's global flat index (x-major; 0 at roots —
     # never read there). Needed by phases 2 and 3.
     n = jnp.arange(W * H, dtype=jnp.int32).reshape(W, H)
     recv = _pull(n, slot, edge, 0)
 
-    if use_pl:
-        # ---- Phases 1+2, VMEM-resident per tile --------------------------
-        G_loc = _local_fp_pallas(lslot, v, w, edge, tile_iters, interp)
-        X, D = _trace_pallas(slot, cross, recv, w, edge, tile_iters, interp)
-    else:
-        # ---- Phase 1: local accumulation (cross-tile edges cut) ----------
-        G_loc = fixed_point(
-            lambda G: _push_once(w * (v + G), lslot, edge),
-            jnp.zeros_like(v), max_iters,
+    # ---- Phase 1: local accumulation (cross-tile edges cut) --------------
+    G_loc = fixed_point(
+        lambda G: _push_once(w * (v + G), lslot, edge),
+        jnp.zeros_like(v), max_iters,
+    )
+
+    # ---- Phase 2: chain exit pointer X and delivery coefficient D --------
+    # Flux arriving at a cell is delivered to entry cell X (global flat
+    # index in the NEIGHBOR tile) with weight D; roots deliver nowhere.
+    X0 = jnp.where(cross, recv, -1)
+    # D = w on every edge-bearing cell, 0 at roots (cross cells are
+    # never roots, so no special case).
+    D0 = jnp.where(is_root, 0.0, w)
+
+    def trace(c):
+        X, D = c
+        Xr = _pull(X, slot, edge, -1)
+        Dr = _pull(D, slot, edge, 0.0)
+        in_tile = ~cross & ~is_root
+        return (
+            jnp.where(in_tile, Xr, X0),
+            jnp.where(in_tile, w * Dr, D0),
         )
 
-        # ---- Phase 2: chain exit pointer X and delivery coefficient D ----
-        # Flux arriving at a cell is delivered to entry cell X (global flat
-        # index in the NEIGHBOR tile) with weight D; roots deliver nowhere.
-        X0 = jnp.where(cross, recv, -1)
-        # D = w on every edge-bearing cell, 0 at roots (cross cells are
-        # never roots, so no special case).
-        D0 = jnp.where(is_root, 0.0, w)
-
-        def trace(c):
-            X, D = c
-            Xr = _pull(X, slot, edge, -1)
-            Dr = _pull(D, slot, edge, 0.0)
-            in_tile = ~cross & ~is_root
-            return (
-                jnp.where(in_tile, Xr, X0),
-                jnp.where(in_tile, w * Dr, D0),
-            )
-
-        X, D = fixed_point(trace, (X0, D0), max_iters)
+    X, D = fixed_point(trace, (X0, D0), max_iters)
 
     # ---- Phase 3: coarse boundary system (compact, pointer-doubled) ------
     from soillib_tpu.ops.graph import operator_doubling
@@ -284,9 +163,8 @@ def accumulate_tiled(direction_slots, value, weight=None, edge: int = D8,
 
     # Everything phase 3 needs lives on boundary cells: gather once at
     # bidx and assemble the entry fluxes with a K-sized compact scatter
-    # (cross-edge receivers are boundary cells by construction). The
-    # previous grid-sized scatter-then-gather was 228 ms of a 716 ms
-    # 4096² accumulation for the same result.
+    # (cross-edge receivers are boundary cells by construction) instead
+    # of a grid-sized scatter-then-gather.
     cross_b = cross.reshape(-1)[bidx]
     recv_b = recv.reshape(-1)[bidx]
     flux_b = (w * (v + G_loc)).reshape(-1)[bidx]
@@ -307,11 +185,8 @@ def accumulate_tiled(direction_slots, value, weight=None, edge: int = D8,
 
     # ---- Phase 4: inject entry fluxes and distribute in-tile -------------
     F_grid = jnp.zeros(W * H, jnp.float32).at[bidx].set(F).reshape(W, H)
-    if use_pl:
-        G_inj = _local_fp_pallas(lslot, F_grid, w, edge, tile_iters, interp)
-    else:
-        G_inj = fixed_point(
-            lambda G: _push_once(w * (F_grid + G), lslot, edge),
-            jnp.zeros_like(v), max_iters,
-        )
+    G_inj = fixed_point(
+        lambda G: _push_once(w * (F_grid + G), lslot, edge),
+        jnp.zeros_like(v), max_iters,
+    )
     return v + G_loc + F_grid + G_inj

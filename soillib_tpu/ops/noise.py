@@ -144,9 +144,8 @@ def _os2_grad(seed, i, j, k, xd, yd, zd):
     multiply, arithmetic >>15 fold, 64-way gradient dot product. All int
     arithmetic is wrapping int32 (XLA semantics match C here).
 
-    The table lookup is decoded arithmetically instead of gathered: a
-    (N, 3) gather result lane-pads the minor dim 3 up to 128 on TPU
-    (32 GiB of HLO temp at 8192²), and every component is in {-1, 0, +1}
+    The table lookup is decoded arithmetically instead of gathered, so
+    no (N, 3) gather temporaries exist: every component is in {-1, 0, +1}
     with a regular structure — row m of the 12 base directions zeroes
     axis m>>2 and signs the other two by bits m&1 / m&2
     (tests/test_noise.py pins the decode against the table)."""

@@ -1,9 +1,9 @@
 """Differential stencil operators over 2-D fields.
 
-TPU-native re-designs of the reference's grad ops (model/grad/grad.cu) and
-the CPU normal op (op/normal.hpp). All are pure jnp stencils — XLA fuses the
-shifted reads into a single VPU pass, which is HBM-bandwidth optimal for
-these radius-1 kernels; no hand-written Pallas needed here.
+Re-designs of the reference's grad ops (model/grad/grad.cu) and the CPU
+normal op (op/normal.hpp). All are pure jnp stencils — XLA fuses the
+shifted reads into a single pass, which is memory-bandwidth optimal for
+these radius-1 kernels.
 
 Boundary semantics are reproduced exactly:
   * gradient:  central difference; where a neighbor is missing, fall back to

@@ -1,76 +1,31 @@
-"""Pallas TPU kernel: temporally-blocked upwind transport sweep.
+"""Linear upwind transport sweep (`transportMethod="field-static"`).
 
 The transport fixed point iterates G <- PUSH(att * (E + G)) for `iters`
-rounds (ops/transport.py). As plain jnp, every round streams the full
-(C, W, H) payload through HBM (~120 B/cell/round) — the step is then pure
-HBM bandwidth. This kernel applies *temporal blocking*, the classic
-stencil-train optimization: each tile is loaded into VMEM once with a
-K-cell halo ring and advanced K rounds entirely on-chip before writing
-back, cutting HBM traffic by ~K×.
+rounds (ops/transport.py) in channel-first (C, W, H) layout; XLA fuses
+each round's weighted push into one pass over the payload.
 
-Correctness argument (trapezoid rule): one upwind round propagates
-information exactly one cell. After k rounds, only window cells within k
-of the window edge are stale; keeping the tile interior (≥ K cells from
-every window edge) after K rounds reproduces K global rounds exactly.
-Cross-round wrap-around from `jnp.roll` only ever lands in the stale halo
-ring, so no masking is needed. Global boundaries are handled by zero
-pre-padding: vx = vy = 0 outside the domain means no emission, and outflow
-into the pad is dropped — identical to `upwind_push`'s lost-at-boundary
-semantics (path.cu:104).
-
-Layout & alignment: channel-FIRST (C, W, H) so the minor (lane) dim is
-spatial. Mosaic requires DMA slice offsets AND sizes aligned to the (8,
-128) tile in the last two dims, so (see the constants below):
-  * rows (sublanes): tile TILE_X = SX - 2K, window SX (both % 8 == 0;
-    offsets i*TILE_X stay 8-aligned).
-  * cols (lanes):    tile TILE_Y (a 128-multiple, so offsets j*TILE_Y are
-    lane-aligned), window SY = the next 128-multiple above TILE_Y + 2K,
-    loaded at offset j*TILE_Y — the first TILE_Y + 2K columns are the real
-    window, the trailing SY - TILE_Y - 2K are in-bounds slack covered by
-    the right zero-pad (_YPAD_R); stale/slack values never reach the
-    interior within K rounds.
-Outflow mask-weights are computed in-kernel from vx, vy (two fewer HBM
-streams than passing four masks).
+The sharded solve (parallel/halo.py `ShardHalo.run_transport`) advances
+HALO_K rounds block-locally between K-wide halo exchanges. Correctness
+argument (trapezoid rule): one upwind round propagates information
+exactly one cell, so after k rounds only block cells within k of the
+padded edge are stale; keeping the interior after K rounds reproduces K
+global rounds exactly. Global boundaries are handled by zero padding:
+vx = vy = 0 outside the domain means no emission, and outflow into the
+pad is dropped — identical to `upwind_push`'s lost-at-boundary semantics
+(path.cu:104).
 
 Ref: the MC trajectory loop this replaces is path.cu:52-139 /
-erosion.cu:29-141; same fixed point, TPU-native schedule.
+erosion.cu:29-141.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-# Window geometry. The stale K-cell halo ring plus the lane-alignment
-# slack are computed every round and thrown away, so the compute-bound
-# cohort kernel's efficiency is proportional to TILE_X*TILE_Y/(SX*SY)
-# (74% at these defaults). Env-overridable for tuning experiments.
-HALO_K = int(os.environ.get("SOIL_SWEEP_K", 16))   # rounds/pass == halo
-TILE_Y = int(os.environ.get("SOIL_SWEEP_TY", 512)) # tile cols (128-mult)
-SX = int(os.environ.get("SOIL_SWEEP_SX", 256))     # row window (8-mult)
-SY = int(os.environ.get("SOIL_SWEEP_SY", 640))     # col window (128-mult)
-TILE_X = SX - 2 * HALO_K          # output tile rows
-_YPAD_R = SY - TILE_Y - HALO_K    # right zero-pad beyond the last tile
-# SX/SY are the Mosaic DMA slice SIZES and must themselves be (8, 128)-
-# aligned (offsets are aligned via TILE_X % 8 / TILE_Y % 128) — an
-# unaligned override fails deep in Mosaic with an opaque error otherwise.
-assert HALO_K >= 1, "SOIL_SWEEP_K must be >= 1 (K=0 divides by zero in the "\
-    "pass split; K<0 silently misplaces dynamic_update_slice offsets)"
-assert TILE_Y + 2 * HALO_K <= SY and TILE_X % 8 == 0 and TILE_Y % 128 == 0
-assert SX % 8 == 0 and SY % 128 == 0, "SOIL_SWEEP_SX/SY must be 8/128-mult"
-assert TILE_X > 0, "SOIL_SWEEP_SX too small for 2*K halo"
-
-# VMEM scratch grows linearly with channel count (three double-buffered
-# (C, SX, SY) windows ≈ 3 MB/channel plus fori_loop temporaries of the same
-# order); beyond this many channels the kernel would exceed the 100 MB VMEM
-# budget and fail Mosaic compilation with an opaque error, so arbitrary-C
-# callers are routed to the jnp fixed point instead.
-MAX_SWEEP_CHANNELS = 12
+# Rounds advanced per halo exchange == halo ring width of the sharded
+# K-blocked solves (transport and cohort).
+HALO_K = 16
 
 
 def _round_weights(vx, vy):
@@ -89,193 +44,8 @@ def _round_weights(vx, vy):
     )
 
 
-def _sweep_kernel(rounds, C, gh, n_tiles,
-                  g_hbm, e_hbm, a_hbm, vx_hbm, vy_hbm,
-                  out_hbm,
-                  g_v, e_v, a_v, vx_v, vy_v, out_v, sems, out_sem):
-    """Double-buffered: tile t's 5 input windows are DMA'd into slot t%2
-    while tile t-1 computes; the interior write-back overlaps the next
-    tile's compute and is awaited one tile later (slot-alternating)."""
-    t = pl.program_id(0)
-    slot = jax.lax.rem(t, 2)
-
-    def in_dmas(s, ti):
-        ii = ti // gh
-        jj = jax.lax.rem(ti, gh)
-        x0 = ii * TILE_X
-        y0 = jj * TILE_Y
-        return [
-            pltpu.make_async_copy(
-                src.at[..., pl.ds(x0, SX), pl.ds(y0, SY)], dst.at[s],
-                sems.at[s, k],
-            )
-            for k, (src, dst) in enumerate(
-                [(g_hbm, g_v), (e_hbm, e_v), (a_hbm, a_v),
-                 (vx_hbm, vx_v), (vy_hbm, vy_v)]
-            )
-        ]
-
-    def out_dma(s, ti):
-        ii = ti // gh
-        jj = jax.lax.rem(ti, gh)
-        return pltpu.make_async_copy(
-            out_v.at[s],
-            out_hbm.at[:, pl.ds(ii * TILE_X, TILE_X),
-                       pl.ds(jj * TILE_Y, TILE_Y)],
-            out_sem.at[s],
-        )
-
-    @pl.when(t == 0)
-    def _():
-        for c in in_dmas(0, 0):
-            c.start()
-
-    @pl.when(t + 1 < n_tiles)
-    def _():
-        for c in in_dmas(1 - slot, t + 1):
-            c.start()
-
-    for c in in_dmas(slot, t):
-        c.wait()
-
-    e = e_v[slot]
-    a = a_v[slot]
-    mxp, mxn, myp, myn = _round_weights(vx_v[slot], vy_v[slot])
-    mxp, mxn = mxp[None], mxn[None]
-    myp, myn = myp[None], myn[None]
-
-    def body(_, g):
-        payload = a * (e + g)
-        return (
-            jnp.roll(payload * mxp, 1, axis=1)
-            + jnp.roll(payload * mxn, -1, axis=1)
-            + jnp.roll(payload * myp, 1, axis=2)
-            + jnp.roll(payload * myn, -1, axis=2)
-        )
-
-    g = jax.lax.fori_loop(0, rounds, body, g_v[slot])
-
-    # Wait for the write-back issued two tiles ago before reusing its slot.
-    @pl.when(t >= 2)
-    def _():
-        out_dma(slot, t - 2).wait()
-
-    # Interior selected as a *value* slice (vector relayout) — a ref slice
-    # at lane offset HALO_K would break the 128-alignment DMA rule.
-    out_v[slot] = g[:, HALO_K:HALO_K + TILE_X, HALO_K:HALO_K + TILE_Y]
-    out_dma(slot, t).start()
-
-    # Drain: the final tile waits for its own write-back and (when it
-    # exists) the previous tile's still-in-flight one.
-    @pl.when(t + 1 >= n_tiles)
-    def _():
-        out_dma(slot, t).wait()
-
-    if n_tiles >= 2:
-        @pl.when(t + 1 == n_tiles)
-        def _():
-            out_dma(1 - slot, t - 1).wait()
-
-
-@functools.partial(jax.jit, static_argnames=("rounds", "grid_wh", "interpret"))
-def _sweep_call(Gp, Ep, Ap, Vx, Vy, *, rounds, grid_wh, interpret):
-    C = Gp.shape[0]
-    gw, gh = grid_wh
-    n_tiles = gw * gh
-    kernel = functools.partial(_sweep_kernel, rounds, C, gh, n_tiles)
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[any_spec] * 5,
-        out_specs=any_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (C, gw * TILE_X, gh * TILE_Y), jnp.float32
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, C, SX, SY), jnp.float32),   # G windows
-            pltpu.VMEM((2, C, SX, SY), jnp.float32),   # E windows
-            pltpu.VMEM((2, C, SX, SY), jnp.float32),   # att windows
-            pltpu.VMEM((2, SX, SY), jnp.float32),      # vx windows
-            pltpu.VMEM((2, SX, SY), jnp.float32),      # vy windows
-            pltpu.VMEM((2, C, TILE_X, TILE_Y), jnp.float32),  # aligned out
-            pltpu.SemaphoreType.DMA((2, 5)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(Gp, Ep, Ap, Vx, Vy)
-
-
-def transport_advance(G0, E, att, vx, vy, iters: int, *, interpret: bool = False):
-    """`iters` rounds of G <- PUSH(att * (E + G)) from an arbitrary G0.
-
-    Args:
-      G0:   (C, W, H) initial inflow state (zeros for a fresh solve).
-      E:    (C, W, H) per-cell emission (channel-first).
-      att:  (C, W, H) per-cell, per-channel attenuation.
-      vx, vy: (W, H) unit flow direction components.
-      iters: number of rounds (static).
-      interpret: run the Pallas interpreter (CPU testing).
-    Returns:
-      (C, W, H) accumulated inflow G, matching `iters` iterations of
-      `upwind_push` to float32 roundoff.
-    """
-    C, W, H = E.shape
-    if C > MAX_SWEEP_CHANNELS:
-        return transport_advance_reference(
-            jnp.asarray(G0, jnp.float32), E, att, vx, vy, iters
-        )
-    K = HALO_K
-    gw = -(-W // TILE_X)
-    gh = -(-H // TILE_Y)
-    Wp, Hp = gw * TILE_X, gh * TILE_Y
-
-    def pad3(x):
-        return jnp.pad(x, ((0, 0), (K, Wp - W + K), (K, Hp - H + _YPAD_R)))
-
-    def pad2(x):
-        return jnp.pad(x, ((K, Wp - W + K), (K, Hp - H + _YPAD_R)))
-
-    Ep, Ap = pad3(E), pad3(att)
-    Vx = pad2(vx)
-    Vy = pad2(vy)
-
-    G = jnp.pad(jnp.asarray(G0, jnp.float32),
-                ((0, 0), (0, Wp - W), (0, Hp - H)))
-    n_full, rem = divmod(int(iters), K)
-    if n_full:
-        # lax.scan keeps ONE pass's buffers live however many passes run
-        # (a Python loop unrolls into per-pass pallas calls whose output
-        # blocks the TPU scheduler keeps simultaneously live — see
-        # ops/cohort.py cohort_advance).
-        def body(G, _):
-            Gp = jnp.pad(G, ((0, 0), (K, K), (K, _YPAD_R)))
-            return _sweep_call(
-                Gp, Ep, Ap, Vx, Vy,
-                rounds=K, grid_wh=(gw, gh), interpret=interpret,
-            ), None
-
-        G, _ = jax.lax.scan(body, G, None, length=n_full)
-    if rem:
-        Gp = jnp.pad(G, ((0, 0), (K, K), (K, _YPAD_R)))
-        G = _sweep_call(Gp, Ep, Ap, Vx, Vy,
-                        rounds=rem, grid_wh=(gw, gh), interpret=interpret)
-    return G[:, :W, :H]
-
-
-def transport_sweep(E, att, vx, vy, iters: int, *, interpret: bool = False):
-    """`iters` rounds of G <- PUSH(att * (E + G)) from G = 0."""
-    return transport_advance(
-        jnp.zeros_like(E), E, att, vx, vy, iters, interpret=interpret
-    )
-
-
 def upwind_push_cf(payload, vx, vy):
-    """Channel-first reference implementation of one PUSH round (the jnp
-    fallback and the oracle the kernel is tested against)."""
+    """Channel-first implementation of one PUSH round."""
     mxp, mxn, myp, myn = _round_weights(vx, vy)
 
     def shift_from(a, dx, dy):
@@ -295,96 +65,28 @@ def upwind_push_cf(payload, vx, vy):
 
 
 def transport_advance_reference(G0, E, att, vx, vy, iters: int):
-    """jnp fallback of `transport_advance`: one HBM pass per round."""
+    """`iters` rounds of G <- PUSH(att * (E + G)) from an arbitrary G0.
+
+    Args:
+      G0:   (C, W, H) initial inflow state (zeros for a fresh solve).
+      E:    (C, W, H) per-cell emission (channel-first).
+      att:  (C, W, H) per-cell, per-channel attenuation.
+      vx, vy: (W, H) unit flow direction components.
+      iters: number of rounds (static).
+    """
     def body(_, G):
         return upwind_push_cf(att * (E + G), vx, vy)
 
     return jax.lax.fori_loop(0, iters, body, G0)
 
 
-def _advance_checkpointed(G0, E, att, vx, vy, iters: int):
-    """`transport_advance_reference` rematerialized per HALO_K-round block:
-    reverse-mode stores only the block-boundary G states (iters/K of them)
-    and recomputes each block's rounds in the cotangent sweep, bounding
-    residual memory at O(C*W*H*(iters/K + K)) instead of O(C*W*H*iters) —
-    the difference between fitting and OOMing a 4096²/32-round grad."""
-    blk = jax.checkpoint(
-        lambda g, r: transport_advance_reference(g, E, att, vx, vy, r),
-        static_argnums=(1,),
-    )
-    n_full, rem = divmod(int(iters), HALO_K)
-    G = G0
-    for _ in range(n_full):
-        G = blk(G, HALO_K)
-    if rem:
-        G = blk(G, rem)
-    return G
-
-
 def transport_sweep_reference(E, att, vx, vy, iters: int):
-    """jnp fallback: same fixed point, one HBM pass per round."""
+    """`iters` rounds of G <- PUSH(att * (E + G)) from G = 0."""
     return transport_advance_reference(
         jnp.zeros_like(E), E, att, vx, vy, iters
     )
 
 
-def use_pallas() -> bool:
-    """Route single-device transport through the Pallas kernel on TPU
-    (Mosaic); elsewhere (CPU tests) fall back to the jnp implementation."""
-    return jax.default_backend() == "tpu"
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
-def _diffable_sweep(E, att, vx, vy, iters):
-    """Pallas forward with a jnp reverse pass: the kernel has no AD rule,
-    so `jax.grad` through the erosion step replays the (mathematically
-    identical) per-round reference in the backward sweep."""
-    return transport_sweep(E, att, vx, vy, iters)
-
-
-def _diffable_fwd(E, att, vx, vy, iters):
-    return transport_sweep(E, att, vx, vy, iters), (E, att, vx, vy)
-
-
-def _diffable_bwd(iters, res, ct):
-    E, att, vx, vy = res
-    _, vjp = jax.vjp(
-        lambda e, a, x, y: _advance_checkpointed(
-            jnp.zeros_like(e), e, a, x, y, iters
-        ),
-        E, att, vx, vy,
-    )
-    return vjp(ct)
-
-
-_diffable_sweep.defvjp(_diffable_fwd, _diffable_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5,))
-def diffable_advance(G0, E, att, vx, vy, iters):
-    """transport_advance with a jnp reverse pass (the sharded K-blocked
-    exchange calls this so jax.grad works through pallas on TPU)."""
-    return transport_advance(G0, E, att, vx, vy, iters)
-
-
-def _adv_fwd(G0, E, att, vx, vy, iters):
-    return transport_advance(G0, E, att, vx, vy, iters), (G0, E, att, vx, vy)
-
-
-def _adv_bwd(iters, res, ct):
-    G0, E, att, vx, vy = res
-    _, vjp = jax.vjp(
-        lambda g, e, a, x, y: _advance_checkpointed(g, e, a, x, y, iters),
-        G0, E, att, vx, vy,
-    )
-    return vjp(ct)
-
-
-diffable_advance.defvjp(_adv_fwd, _adv_bwd)
-
-
 def run_transport(E, att, vx, vy, iters: int):
-    """Backend-dispatched `iters`-round transport solve (channel-first)."""
-    if use_pallas():
-        return _diffable_sweep(E, att, vx, vy, int(iters))
-    return transport_sweep_reference(E, att, vx, vy, iters)
+    """Single-device `iters`-round transport solve (channel-first)."""
+    return transport_sweep_reference(E, att, vx, vy, int(iters))

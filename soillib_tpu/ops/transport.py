@@ -7,7 +7,7 @@ atomicAdd their attenuated source into every cell they enter
 (path.cu:52-139); a normalize pass converts the flux integral to a cell
 value (path.cu:141-170).
 
-TPU-native re-design — two interchangeable methods:
+Re-design — two interchangeable methods:
 
 * method="field" (default): the *expected value* of the MC estimator is the
   fixed point of a linear upwind transport operator. Per cell, the unit
@@ -19,8 +19,8 @@ TPU-native re-design — two interchangeable methods:
 
   for `iterations` rounds (default: the reference's W+H Manhattan bound,
   path.cu:200) converges to the same normalized field, deterministically,
-  as one fused radius-1 stencil per round — the TPU-idiomatic formulation
-  (dense VPU work, no atomics, no gathers).
+  as one fused radius-1 stencil per round (dense elementwise work, no
+  atomics, no gathers).
 
 * method="particles": a faithful vectorized port of the MC estimator —
   threefry keys replace curand (deterministic in (seed, offset)), vmapped
@@ -158,8 +158,8 @@ def expected_exp_step(vx, vy, coef):
     confined to states that were saturated anyway. a -> 0 reduces to the
     pure sqrt2 cap."""
     def expm1_k(x):
-        """expm1 with a kernel-lowerable decomposition (`lax.expm1_p` has
-        no Pallas TPU rule): cubic Taylor under |x| < 0.01 (rel error
+        """expm1 as an explicit decomposition (the goldens are pinned to
+        it): cubic Taylor under |x| < 0.01 (rel error
         < 2e-8 there — exp(x)-1 alone loses ~1e-7/|x| relative), plain
         exp(x)-1 elsewhere (rel error <= 1.2e-5 at the branch point)."""
         small = jnp.abs(x) < 0.01
@@ -350,7 +350,7 @@ def _solve_field(flow, source, decay, scale, iterations, halo=NO_HALO):
 
     emit = A * source  # expected per-cell source emission [X*m^D/s]
 
-    # Channel-first solve (TPU Pallas sweep / sharded ppermute; sweep.py).
+    # Channel-first solve (ops/sweep.py; K-blocked ppermute when sharded).
     E = jnp.moveaxis(emit, -1, 0) if source.ndim == 3 else emit[None]
     attc = jnp.broadcast_to(att[None], E.shape)
     G = halo.run_transport(E, attc, vx, vy, iterations)

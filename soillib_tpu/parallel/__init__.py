@@ -1,9 +1,9 @@
-"""2-D domain decomposition over TPU device meshes.
+"""2-D domain decomposition over device meshes.
 
 The reference is single-GPU (SURVEY.md §2.10); this package is the
-TPU-native scale-out layer the north star requires (BASELINE.json): fields
+scale-out layer the north star requires (BASELINE.json): fields
 block-decomposed over a `jax.sharding.Mesh`, radius-r stencils fed by
-`ppermute` halo exchanges over ICI, transport solved by per-round payload
+`ppermute` halo exchanges (NCCL over NVLink), transport solved by payload
 exchanges, and the global flow-graph ops running GSPMD-partitioned.
 
     from soillib_tpu import parallel as par

@@ -1,19 +1,19 @@
-"""Block-decomposed coupled erosion (the pod-scale north-star workload).
+"""Block-decomposed coupled erosion (the multi-device north-star workload).
 
 `make_sharded_erode_fn` wraps the exact same `erode_step` physics in
 `shard_map` over a 2-D mesh: every field is block-decomposed P("X", "Y"),
-and a `ShardHalo` threads ICI neighbor exchanges through each radius-1
+and a `ShardHalo` threads neighbor exchanges through each radius-1
 stencil and each upwind transport round (see core/halo.py for why the
 result is numerically equivalent — bitwise for the pad/crop stencil ops,
 float32-roundoff-close for the composed step — to the single-device run).
 
 Communication cost per step with the default config: 2 gradient exchanges +
 2 transport-loop exchange sequences (iters rounds each) + 1 creep exchange,
-all radius-1 edge slabs — O(block-edge) bytes per round over ICI while the
+all radius-1 edge slabs — O(block-edge) bytes per round over NVLink while the
 stencil does O(block-area) FLOPs, so halo time vanishes for blocks ≳ 512².
 
 Ref analog: none — the reference is single-GPU (SURVEY.md §2.10); this is
-the TPU-native scale-out the north star demands (BASELINE.json).
+the scale-out the north star demands (BASELINE.json).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ BLOCK plays the outer tile. Per block (inside shard_map):
   2. TRACE   — pull-propagate each cell's block-exit destination (global
                cell id) and path-weight, gather-free.
   3. EXCHANGE+COARSE — cross-block out-fluxes hop to the neighbor blocks'
-               edge rings via one ICI halo exchange; the ring cells of all
+               edge rings via one halo exchange; the ring cells of all
                blocks form a small global linear system, all-gathered and
                solved replicated by pointer doubling (ring size is
                2(bw+bh) per block — KBs, not the grid).
@@ -105,7 +105,7 @@ def _local_kernel(halo, Wg, Hg, edge, max_iters, slot, v, w):
     X, D = fixed_point(trace, (X0, D0), max_iters)
 
     # Phase 3a: ship cross-block out-fluxes to the neighbors' edge rings
-    # (one 1-ring ICI exchange; arrivals land where the edges point).
+    # (one 1-ring exchange; arrivals land where the edges point).
     I0 = jnp.zeros((bw, bh), jnp.float32)
     for d, (dx, dy) in enumerate(shifts):
         of = jnp.where((slot == d) & cross, w * (v + G_loc), 0.0)

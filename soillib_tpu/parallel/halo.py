@@ -5,9 +5,9 @@ grows each block by an r-wide ring holding the neighboring blocks' edge
 slabs, exchanged as two sequential non-periodic shifts (x first, then y on
 the already-x-padded block, so corner cells pick up the diagonal neighbor's
 data in the second hop — no separate corner messages, the standard 2-hop
-corner trick). On TPU hardware each shift is a neighbor ppermute that XLA
-lowers to ICI collective-permute; the payload per step is one edge slab
-(r × block-edge cells), a few KB–MB, far below ICI speed-of-light limits.
+corner trick). Each shift is a neighbor ppermute that XLA lowers to a
+collective-permute (NCCL over NVLink between the cards of one host); the
+payload per step is one edge slab (r × block-edge cells), a few KB–MB.
 
 Global-boundary blocks fill their outward-facing ring with the op's own
 boundary condition (`fill`), which is what makes sharded execution
@@ -55,16 +55,12 @@ class halo_ledger:
 
 def _overlap_enabled() -> bool:
     """Opt-in interior/boundary-band overlap schedule for the K-blocked
-    paths (see run_cohort).  OFF by default: the band re-computation
-    costs ~4*WINDOW/B of a full pass (WINDOW = the Pallas row window,
-    256) while the exchange it hides is <=1% of pass time at every block
-    size the kernel geometry supports — the analytic model's conclusion,
-    now with its inputs measured via HALO_BYTES.  The schedule exists
-    (a) so the cost/benefit is measurable rather than argued, and (b) as
-    the structural template for the real fix, an in-kernel RDMA pipeline
-    (boundary tiles computed first and sent via async remote copy while
-    interior tiles compute) once multi-chip hardware is available.
-    Read at trace time so tests can toggle it per-call."""
+    paths (see run_cohort).  OFF by default: the four 3K-wide boundary
+    bands are advanced a second time, which costs ~12K/B of a full pass
+    for a B-wide block, while the exchange it hides is one K-wide slab
+    per side (traffic recorded via HALO_BYTES); whether the overlap pays
+    on a given mesh is a measurement, not an argument.  Read at trace
+    time so tests can toggle it per-call."""
     return os.environ.get("SOIL_HALO_OVERLAP", "0") == "1"
 
 
@@ -163,11 +159,9 @@ class ShardHalo(Halo):
 
     def run_transport(self, E, att, vx, vy, iters: int):
         """Temporally-blocked distributed transport: one K-wide halo
-        exchange over ICI per K rounds, with the K rounds advanced
-        entirely block-locally (the Pallas sweep on TPU, the jnp fixed
-        point elsewhere). The communication amortization mirrors the HBM
-        amortization of ops/sweep.py — same trapezoid correctness
-        argument, applied at the block boundary.
+        exchange per K rounds, with the K rounds advanced entirely
+        block-locally — the trapezoid correctness argument of
+        ops/sweep.py, applied at the block boundary.
 
         Falls back to a per-round 1-cell exchange when blocks are
         narrower than K."""
@@ -183,16 +177,12 @@ class ShardHalo(Halo):
         vxp = self.pad_cf(vx, 0.0, K)
         vyp = self.pad_cf(vy, 0.0, K)
 
-        advance = (
-            S.diffable_advance if S.use_pallas()
-            else S.transport_advance_reference
-        )
+        advance = S.transport_advance_reference
 
         G = jnp.zeros_like(E)
         n_full, rem = divmod(int(iters), K)
         if n_full:
-            # lax.scan bounds buffer liveness to one pass (see
-            # ops/cohort.py cohort_advance).
+            # lax.scan bounds buffer liveness to one pass.
             def body(G, _):
                 Gp = self.pad_cf(G, 0.0, K)
                 return self.crop_cf(advance(Gp, Ep, attp, vxp, vyp, K), K), None
@@ -206,9 +196,8 @@ class ShardHalo(Halo):
     def run_cohort(self, st0, aux, rules, iters: int, Llen, closure=None,
                    tol: float = 0.0):
         """K-blocked distributed cohort sweep: exchange a K-wide ring of
-        the cohort state per K rounds, advance the K rounds block-locally
-        (the Pallas cohort kernel on TPU, the jnp loop elsewhere), keep
-        the block interior of state and deposits. Same trapezoid argument
+        the cohort state per K rounds, advance the K rounds block-locally,
+        keep the block interior of state and deposits. Same trapezoid argument
         as `run_transport`, applied to the nonlinear round.
 
         `tol` > 0 enables the convergence-adaptive depth exit between
@@ -231,9 +220,8 @@ class ShardHalo(Halo):
         auxp = self.pad_cf(aux, 0.0, K)
 
         def advance(stp, axp, rules, r, Llen):
-            fn = (CO.cohort_advance if CO.use_pallas()
-                  else CO.cohort_advance_reference)
-            return fn(stp, axp, rules, r, Llen, closure=closure)
+            return CO.cohort_advance_reference(stp, axp, rules, r, Llen,
+                                               closure=closure)
 
         ST = st0
         C = CO.n_deposits(st0.shape[0], closure)
@@ -330,8 +318,7 @@ class ShardHalo(Halo):
                 G = jax.lax.cond(done, lambda st, g: g, tail, ST, G)
             return G
         if n_full:
-            # lax.scan bounds buffer liveness to one pass (see
-            # ops/cohort.py cohort_advance).
+            # lax.scan bounds buffer liveness to one pass.
             def body(carry, _):
                 ST, G = carry
                 stn, gp = one_pass(ST, K)

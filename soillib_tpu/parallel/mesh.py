@@ -6,8 +6,10 @@ single-GPU; SURVEY.md §2.10): a (W, H) field is block-decomposed over a 2-D
 sharded over "X" and axis 1 over "Y". Channel dims stay replicated.
 
 Multi-host: call `jax.distributed.initialize()` before `make_mesh()`;
-`jax.devices()` then spans the pod slice and the same code runs unchanged —
-halo exchanges ride ICI, checkpoint I/O and host work stay local.
+`jax.devices()` then spans every process's cards and the same code runs
+unchanged — halo exchanges go through NCCL (NVLink within a host),
+checkpoint I/O and host work stay local. Every card reaches every other
+at the same rate, so the mesh shape follows the grid alone.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def shard_field_global(arr, mesh: Mesh):
     """Multi-process-safe placement of a host-replicated field: each
     process contributes only its addressable shards of the global array
     (`jax.make_array_from_callback`). Single-process this is equivalent
-    to `shard_field`; on a pod it is the required form, since
+    to `shard_field`; across processes it is the required form, since
     `device_put` cannot target non-addressable devices."""
     a = np.asarray(arr)
     sharding = NamedSharding(mesh, leaf_spec(a, mesh))
@@ -92,7 +94,7 @@ def shard_field_global(arr, mesh: Mesh):
 
 
 def shard_state_global(state, mesh: Mesh):
-    """Pytree version of `shard_field_global` (pod launch path)."""
+    """Pytree version of `shard_field_global` (multi-process launch path)."""
     return jax.tree_util.tree_map(lambda a: shard_field_global(a, mesh), state)
 
 

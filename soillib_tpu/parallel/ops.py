@@ -4,7 +4,7 @@ Two execution families:
 
 1. **Stencil ops** (gradient/negslope/laplacian/normal/blur/solve_uniform/
    steepest/direction/random_weighted): wrapped in `shard_map` with a
-   `ShardHalo` supplying ghost cells over ICI. Results are bitwise equal to
+   `ShardHalo` supplying ghost cells by ppermute. Results are bitwise equal to
    the single-device ops (the halo fills replicate each op's boundary
    condition; see core/halo.py).
 

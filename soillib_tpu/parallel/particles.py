@@ -4,7 +4,7 @@ The reference's Monte-Carlo solvers are single-GPU (SURVEY.md §2.10);
 the field solve is this framework's scale-out formulation. This module
 removes the remaining limitation — distributional MC studies were
 single-device-only — by running the particle estimators block-
-decomposed with ICI particle migration:
+decomposed with ppermute particle migration:
 
 * Births are drawn GLOBALLY: every block evaluates the identical
   threefry draws (the key is replicated), then keeps the particles that
@@ -36,8 +36,8 @@ decomposed with ICI particle migration:
 
 All buffers are static-shaped: local slot arrays hold
 ceil(count/nblocks * slack) records; compaction is a stable argsort
-(masked-first) — O(M log M) VPU work per round, the price of
-atomics-free, shape-static migration on TPU.
+(masked-first) — O(M log M) work per round, the price of
+atomics-free, shape-static migration.
 """
 
 from __future__ import annotations
@@ -148,8 +148,8 @@ def _bilinear_global(flow_pad, pos, x0, y0, W, H):
 
 def solve_particles_sharded(flow, source, decay, scale, count, key, mesh,
                             maxstep=None, slack=1.5):
-    """Block-decomposed `solve_uniform(method="particles")` with ICI
-    particle migration — the faithful MC estimator of path.cu:52-139 at
+    """Block-decomposed `solve_uniform(method="particles")` with
+    ppermute particle migration — the faithful MC estimator of path.cu:52-139 at
     mesh scale. Returns ((W, H[, K]) flux, dropped count).
 
     The estimate equals the single-device `_solve_particles` with the
@@ -293,7 +293,7 @@ def fluvial_particles_sharded(layers, rainfall, discharge, momentum,
                               albedo_surface, scale, p, key, mesh,
                               slack=1.5):
     """Block-decomposed `_fluvial_particles` (erosion.cu:29-141) with
-    ICI particle migration — distributional MC fluvial transport at mesh
+    ppermute particle migration — distributional MC fluvial transport at mesh
     scale. Returns ((W, H, 7) flux, dropped); same parity contract as
     `solve_particles_sharded` (bitwise on 1×1, statistical on real
     meshes — module docstring)."""
@@ -477,7 +477,7 @@ def fluvial_particles_sharded(layers, rainfall, discharge, momentum,
 def debris_particles_sharded(layers, mass, momentum, albedo_surface,
                              scale, p, key, mesh, slack=1.5):
     """Block-decomposed `_debris_particles` (erosion.cu:245-351) with
-    ICI particle migration. Returns ((W, H, 6) flux, dropped); parity
+    ppermute particle migration. Returns ((W, H, 6) flux, dropped); parity
     contract as `solve_particles_sharded`."""
     from soillib_tpu.models.erosion import (
         _EPS,

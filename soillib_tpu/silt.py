@@ -56,7 +56,7 @@ class _Host:
 
 
 cpu = _Host("cpu")
-gpu = _Host("gpu")   # "the accelerator" — TPU here
+gpu = _Host("gpu")   # "the accelerator"
 
 
 class tensor:

@@ -9,7 +9,7 @@ import soillib_tpu as soil
 
 def test_orbax_checkpoint_roundtrip(tmp_path):
     """Full ErosionState through save_checkpoint/load_checkpoint
-    (SURVEY.md §5: step checkpoints for pod runs)."""
+    (SURVEY.md §5: step checkpoints for multi-device runs)."""
     from soillib_tpu.io.checkpoint import load_checkpoint, save_checkpoint
 
     h = soil.noise((16, 16), soil.noise_t())

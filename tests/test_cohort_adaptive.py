@@ -1,9 +1,9 @@
 """Convergence-adaptive transport depth (ops/cohort.py carried_live).
 
 The reference runs its particle trajectory loop to the fixed `maxage`
-bound (erosion.cu:101) — dead particles are cheap idle warp lanes on
-GPU, but on TPU every dead ROUND of the cohort sweep is a full-cost HBM
-pass.  The adaptive exit (tol > 0) stops once the remaining-deposit
+bound (erosion.cu:101) — there dead particles are idle threads, but
+here every dead ROUND of the cohort sweep is a full-cost pass over the
+state.  The adaptive exit (tol > 0) stops once the remaining-deposit
 bound (live carried mass x rounds remaining) falls below tol of the
 accumulated deposits per channel, which must (a) reproduce the fixed
 full-depth solve to f32 roundoff and (b) actually exit early on
@@ -133,16 +133,18 @@ def test_adaptive_matches_fixed_510_rounds():
     assert exit_at <= 160, f"adaptive ran {exit_at}/510 rounds"
 
 
-def test_adaptive_kernel_matches_fixed_depth():
-    """The Pallas path's pass-granular while_loop (+ lax.cond tail skip)
-    == the fixed-depth kernel, including a non-multiple-of-K remainder."""
-    from soillib_tpu.ops.cohort import cohort_advance
+def test_adaptive_kblocked_matches_fixed_depth(mesh):
+    """The K-blocked solve's pass-granular while_loop (+ lax.cond tail
+    skip) == the fixed-depth per-round reference, including a
+    non-multiple-of-K remainder."""
+    from soillib_tpu.ops.cohort import cohort_advance_reference
 
-    st0, aux, rules = _cohort_problem(jax.random.PRNGKey(4), 2, 72, 60)
+    from tests.test_sweep import sharded_cohort
+
+    st0, aux, rules = _cohort_problem(jax.random.PRNGKey(4), 2, 72, 64)
     iters = 53  # 3 full K=16 passes + remainder 5
-    _, g_fix = cohort_advance(st0, aux, rules, iters, 0.11, interpret=True)
-    _, g_ad = cohort_advance(st0, aux, rules, iters, 0.11, interpret=True,
-                             tol=TOL)
+    _, g_fix = cohort_advance_reference(st0, aux, rules, iters, 0.11)
+    g_ad = sharded_cohort(mesh, st0, aux, rules, iters, tol=TOL)
     np.testing.assert_allclose(np.asarray(g_ad), np.asarray(g_fix),
                                rtol=2e-5, atol=1e-5)
 

@@ -1,12 +1,12 @@
-"""Color-batched quality-mode solves (VERDICT r4 #4).
+"""Colored quality-mode solves.
 
 `closure.colors = M` partitions births into M disjoint sub-populations
-whose deposits sum (CohortClosure.colors).  Round 4 ran M SEQUENTIAL
-full solves; the batched form stacks the color sub-states as extra
-channel groups through ONE solve — same physics, shared staging/aux/
-deposit traffic.  These tests pin batched == looped to f32 roundoff,
-through the reference path, the Pallas kernel (interpret), and the full
-transport entry point.
+whose deposits sum (CohortClosure.colors).  The model solves the colours
+one after another (models/erosion.py `_run_cohort_colored`); the cohort
+round can also carry all M colour groups as extra channel groups of one
+state.  These tests pin the two forms equal to f32 roundoff, through the
+reference path, the K-blocked sharded solve, and the full transport
+entry point.
 """
 
 import dataclasses
@@ -20,6 +20,13 @@ import soillib_tpu as soil
 from soillib_tpu.ops.cohort import CohortClosure
 
 from tests.test_sweep import _cohort_problem
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    from soillib_tpu import parallel as par
+
+    return par.make_mesh()  # (2, 4) over the conftest's 8 cpu devices
 
 
 def _colored_state(st0, M):
@@ -51,21 +58,20 @@ def test_batched_colors_match_looped_reference(M):
                                rtol=2e-6, atol=1e-6)
 
 
-def test_batched_colors_kernel_matches_reference():
-    """The Pallas kernel advances the color-wide state identically to
-    the jnp reference (deposit contract, multi-pass)."""
-    from soillib_tpu.ops.cohort import (
-        cohort_advance,
-        cohort_advance_reference,
-    )
+def test_batched_colors_sharded_matches_reference(mesh):
+    """The K-blocked sharded solve advances the color-wide state
+    identically to the per-round reference (deposit contract,
+    multi-pass)."""
+    from soillib_tpu.ops.cohort import cohort_advance_reference
 
-    st0, aux, rules = _cohort_problem(jax.random.PRNGKey(8), 2, 72, 60)
+    from tests.test_sweep import sharded_cohort
+
+    st0, aux, rules = _cohort_problem(jax.random.PRNGKey(8), 2, 72, 64)
     stc, _ = _colored_state(st0, 2)
     cl = CohortClosure(colors=2)
-    _, g_w = cohort_advance_reference(stc, aux, rules, 9, 0.11, closure=cl)
-    _, g_g = cohort_advance(stc, aux, rules, 9, 0.11, interpret=True,
-                            closure=cl)
-    np.testing.assert_allclose(np.asarray(g_g), np.asarray(g_w),
+    _, g_w = cohort_advance_reference(stc, aux, rules, 21, 0.11, closure=cl)
+    g_s = sharded_cohort(mesh, stc, aux, rules, 21, closure=cl)
+    np.testing.assert_allclose(np.asarray(g_s), np.asarray(g_w),
                                rtol=2e-5, atol=1e-5)
 
 
@@ -111,9 +117,9 @@ def test_debris_closure_strips_quality_knobs():
 
 
 def test_transport_fluvial_colors_batched_equals_looped():
-    """The full fluvial transport with a colored closure: the batched
-    path (default off-TPU) == the sequential per-color loop, forced by
-    monkeypatching the batch decision off."""
+    """The full fluvial transport with a colored closure: the model's
+    colour-by-colour scan == one solve of the batched colour-group
+    state, forced by monkeypatching `_run_cohort_colored`."""
     import soillib_tpu.models.erosion as ero
 
     h = soil.noise((40, 40), soil.noise_t(seed=2.0, ext=(40, 40)))
@@ -124,33 +130,28 @@ def test_transport_fluvial_colors_batched_equals_looped():
     args = (state.layers, state.rainfall, state.discharge, state.mass,
             state.momentum, state.albedo_surface, (0.1, 0.1, 1.0), p)
 
-    out_b = soil.transport_fluvial(*args)
+    out_l = soil.transport_fluvial(*args)
 
     orig = ero._run_cohort_colored
 
-    def looped(halo, w0, speed, carried0, aux, rules, iters, Llen,
-               closure, tol=0.0):
-        from soillib_tpu.ops.cohort import ENV_CLOSURE
-
-        cl = closure or ENV_CLOSURE
-        M = int(getattr(cl, "colors", 1) or 1)
+    def batched(halo, w0, speed, carried0, aux, rules, iters, Llen,
+                closure, tol=0.0):
+        M = int(getattr(closure, "colors", 1) or 1)
         if M <= 1:
             return orig(halo, w0, speed, carried0, aux, rules, iters,
                         Llen, closure, tol)
-        masks = ero._color_masks(M, cl.color_rule, speed, w0.shape, halo)
-        cl1 = dataclasses.replace(cl, colors=1)
-        G = None
-        for mk in masks:
-            st0 = ero._build_cohort_state(w0 * mk, speed,
-                                          [c * mk for c in carried0], cl)
-            g = halo.run_cohort(st0, aux, rules, iters, Llen, cl1,
-                                tol=tol)
-            G = g if G is None else G + g
-        return G
+        chans = ()
+        for mk in ero._color_masks(M, closure.color_rule, speed, w0.shape,
+                                   halo):
+            chans += ero._build_cohort_state(w0 * mk, speed,
+                                             [c * mk for c in carried0],
+                                             closure)
+        return halo.run_cohort(chans, aux, rules, iters, Llen, closure,
+                               tol=tol)
 
-    ero._run_cohort_colored = looped
+    ero._run_cohort_colored = batched
     try:
-        out_l = soil.transport_fluvial(*args)
+        out_b = soil.transport_fluvial(*args)
     finally:
         ero._run_cohort_colored = orig
 

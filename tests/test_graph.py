@@ -145,7 +145,7 @@ def test_upstream_mask_and_distance():
 
 
 def test_accumulate_stencil_matches_doubling():
-    """The TPU stencil formulation == pointer-doubling == oracle."""
+    """The gather-free stencil formulation == pointer-doubling == oracle."""
     import jax
     import jax.numpy as jnp
     import soillib_tpu as soil
@@ -232,3 +232,15 @@ def test_accumulate_reverse_differentiable():
     )(rain)
     assert np.isfinite(np.asarray(g)).all()
     assert float(jnp.abs(g).max()) > 0.0
+
+
+def test_accumulate_default_method_is_fixed(height):
+    """method=None takes graph.DEFAULT_METHOD — chosen by measurement on
+    the card, never by the backend's name."""
+    from soillib_tpu.ops.graph import DEFAULT_METHOD
+
+    graph = np.asarray(soil.steepest(height, soil.d8))
+    value = np.random.default_rng(3).random(height.shape).astype(np.float32)
+    got = soil.accumulate(graph, value, soil.d8)
+    want = soil.accumulate(graph, value, soil.d8, method=DEFAULT_METHOD)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -1,10 +1,10 @@
-"""VMEM-resident tiled accumulation (Pallas tile solver) — parity.
+"""Two-level (tiled) accumulation vs pointer doubling.
 
-The Pallas phase-1/2/4 kernels reuse the exact fixed-point/push/pull code
-of the jnp path, so results must be BITWISE equal to the full-grid solve
-(and therefore to the pointer-doubling oracle). Run in interpret mode on
-CPU; the compiled path is the TPU default (graph_tiled.accumulate_tiled
-tile_solver="pallas").
+The tiled scheme (ops/graph_tiled.py) cuts cross-tile edges, solves each
+tile's local fixed point, closes the boundary system by operator
+doubling and re-injects — its result must equal the single-level
+pointer-doubling accumulation across tile seams, for D4 and D8, with and
+without per-edge decay.
 """
 
 import numpy as np
@@ -29,18 +29,20 @@ def _random_dem_graph(W, H, edge, seed):
 
 @pytest.mark.parametrize("edge", [D4, D8])
 @pytest.mark.parametrize("shape", [(2 * TILE, 2 * TILE), (TILE + 40, 3 * TILE - 24)])
-def test_pallas_tile_solver_bitwise_equals_jnp(edge, shape):
+def test_tiled_matches_doubling(edge, shape):
+    """Unit rain: every accumulated value is an integer below 2^24, so
+    all summation orders are exact and the methods agree bitwise."""
     W, H = shape
     g, _ = _random_dem_graph(W, H, edge, seed=7)
     slots = graph_to_slots(g, edge)
     rain = jnp.ones((W, H), jnp.float32)
 
-    want = accumulate_tiled(slots, rain, edge=edge, tile_solver="jnp")
-    got = accumulate_tiled(slots, rain, edge=edge, tile_solver="pallas")
+    want = soil.accumulate(g, rain, edge, method="doubling")
+    got = accumulate_tiled(slots, rain, edge=edge)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_pallas_tile_solver_decay_matches_doubling():
+def test_tiled_decay_matches_doubling():
     W, H = 2 * TILE, TILE + 56
     g, _ = _random_dem_graph(W, H, D8, seed=11)
     rain = jnp.ones((W, H), jnp.float32)
@@ -52,7 +54,7 @@ def test_pallas_tile_solver_decay_matches_doubling():
     # compacted-slot quirk from it), NOT the slot array.
     w = _edge_weights(g, 0.9, D8)
     slots = graph_to_slots(g, D8)
-    got = accumulate_tiled(slots, rain, w, D8, tile_solver="pallas")
+    got = accumulate_tiled(slots, rain, w, D8)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5
     )

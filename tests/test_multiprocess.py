@@ -5,8 +5,9 @@ localhost coordinator (CPU backend, 2 local devices each -> a 2x2
 cross-process mesh), run the full sharded coupled erosion step with the
 flagship K-blocked halo exchange, and assert shard-level parity against
 the single-device step (tests/multiproc_worker.py). This is the same
-launch recipe a TPU pod uses — initialize first, identical code after
-(parallel/mesh.py docstring).
+launch recipe a multi-host run uses — initialize first, identical code
+after (parallel/mesh.py docstring). The workers run on the CPU backend
+only, so they never contend for a GPU.
 """
 
 import os

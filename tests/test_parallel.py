@@ -370,7 +370,7 @@ def test_sharded_particles_bitwise_on_single_block():
 
 def test_sharded_particles_migration_parity(mesh):
     """2x4-mesh particle estimator vs single-device: identical particle
-    set, ICI migration across block seams; agreement is statistical —
+    set, ppermute migration across block seams; agreement is statistical —
     corr >= 0.999, total mass to f32 roundoff, zero capacity drops —
     because the deposit cell floor(pos) is discontinuous and 1-ulp
     cross-program reassociation flips near-threshold crossings
@@ -533,7 +533,7 @@ def test_halo_overlap_schedule_equivalent(mesh, monkeypatch):
 
 def test_halo_bytes_ledger(mesh):
     """The halo-traffic ledger measures the traced program's ppermute
-    payloads — the communication inputs of RESULTS.md's scaling model.
+    payloads — the communication inputs of a scaling model.
 
     Direct check: one pad_cf of a (C, bw, bh) block at radius K sends
     2*C*K*bh bytes*4 on the x axis and 2*C*(bw+2K)*K*4 on the y axis

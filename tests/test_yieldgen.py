@@ -1,6 +1,6 @@
 """soil.yield_t / make_yield / prefetch — the util/yield.hpp:24-247
 equivalent (generator semantics: peek/take, strict typing, single-pass
-single-owner handles, exception propagation) and the TPU streaming
+single-owner handles, exception propagation) and the streaming
 value-add (device-prefetching iteration)."""
 
 import jax
